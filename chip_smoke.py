@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path once on one NVIDIA GPU, and check it.
+"""Drive the PyTorch/CUDA port's serving paths once on one NVIDIA GPU, and check them.
 
     python3 chip_smoke.py
 
@@ -7,45 +7,65 @@ Needs one CUDA card, nvcc (the kernels are built from the sources in this
 checkout at first use) and the repository's ``src/`` beside this file; it
 exits non-zero without them.  Imports torch, numpy and ``repro_torch`` only.
 
-Phases, one line of output each (``env`` prints the card's name and power
-limit as nvidia-smi gives them on a line of its own):
-  env     card, torch and CUDA versions; TF32 off for matmul and cuDNN
-  build   nvcc of every kernel (process set-up, apart from cold starts)
-  kernel  each kernel against its plain torch version at the main path's
-          shapes, with its time, the plain time, one library call's time and
-          the least time the card could take for the same work
-  model   one full-width gemma3-4b replica (bf16): parameter count, bytes,
-          cold start, decode-step time, a profiled decode step (device busy
-          time against host wall time), kernel-vs-plain logits
-  serve   ControlPlane + TorchWorkerBackend over full-width replicas; the
-          decode kernel's launch count must be 5 x the decode steps taken
+Phases, one line of output each, with their wall seconds (``env`` prints the
+card's name and power limit as nvidia-smi gives them on a line of its own):
+  env             card, torch and CUDA versions; TF32 off for matmul and cuDNN
+  build           nvcc of every kernel, all started together (process set-up,
+                  apart from cold starts), with ptxas's register/spill lines
+  kernel          decode_attention (K1) against its plain torch version at
+                  gemma3-4b's and deepseek-moe-16b's decode shapes; its time,
+                  the plain time, SDPA's time and the least time the card
+                  could take for the same work, at gemma3-4b's shape
+  kernel.moe_gemm the grouped expert FFN (K3) against its plain version, zero
+                  rows exact; at deepseek-moe-16b's decode call its time, the
+                  plain time, a cuBLAS bmm chain's time and the bound
+  model           one full-width replica (bf16) per arch: gemma3-4b,
+                  deepseek-moe-16b, deepseek-v2-lite-16b (MLA): parameter
+                  count, bytes, cold start, decode-step time, kernel launches
+                  per step, a profiled decode step (device busy time against
+                  host wall time); one step checked: each kernel call in it
+                  against its plain version on the model's own inputs, and
+                  its logits against the model with plain versions in the
+                  kernels' place and with attn_impl="ref" (held on the dense
+                  arch; reported, with routing flips, on the moe archs)
+  serve           ControlPlane + TorchWorkerBackend over full-width replicas
+                  of gemma3-4b, then of deepseek-moe-16b; each kernel's
+                  launch count must be its launches per step x the decode
+                  steps taken
 Then one JSON line of per-kernel numbers, and last the result line
 ``{"ok": true, "device": {...}}``.  Any failure ends the run non-zero.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # the _tol of tests/test_kernels.py
 
-# main-path shapes: gemma3-4b global layers, 2 slots (= container concurrency)
-B, T, H, KH, D = 2, 2048, 8, 4, 256
-MAX_SLOTS, MAX_SEQ = B, T
-N_REQUESTS, MAX_NEW_TOKENS = 8, 16
-MAX_REPLICAS = 4                          # 4 x ~8.1 GB resident, well under 80 GB
+# K1's shapes on the main paths, (B, T, H, K, D): 2 slots (= container
+# concurrency) at max_seq 2048; gemma3-4b's global layers, deepseek-moe-16b's
+K1_GEMMA = (2, 2048, 8, 4, 256)
+K1_MOE = (2, 2048, 16, 16, 128)
+MAX_SLOTS, MAX_SEQ = 2, 2048
+# K3's decode call in deepseek-moe-16b and deepseek-v2-lite: (E, C, d, f)
+K3_DECODE = (64, 8, 2048, 1408)
+K3_SHAPES = [K3_DECODE, (4, 128, 256, 512), (8, 64, 128, 256), (2, 256, 128, 384),
+             (64, 24, 2048, 1408)]      # the sweep of tests/test_kernels.py; C = 24
 
 
 def phase(name: str, **fields) -> None:
@@ -53,11 +73,11 @@ def phase(name: str, **fields) -> None:
 
 
 def time_ms(fn, iters: int = 50) -> float:
-    """Median device time of one call, L2 flushed before each (the decode
-    step streams ~8 GB of weights between two calls of one layer).  The 1 GiB
-    flush also keeps the card busy (~0.3 ms) while the host enqueues the call,
-    so the events time the device, not the host's launch overhead."""
-    flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+    """Median device time of one call, L2 flushed before each (a decode step
+    streams GBs of weights between two calls of one layer).  The 1 GiB flush
+    also keeps the card busy (~0.3 ms) while the host enqueues the call, so
+    the events time the device, not the host's launch overhead."""
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=DEVICE)
     for _ in range(3):
         fn()
     pairs = []
@@ -70,6 +90,17 @@ def time_ms(fn, iters: int = 50) -> float:
         pairs.append((s, e))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def bound(nbytes: int, nops: int, dtype) -> tuple[float, str]:
+    """Least time (ms) for the work, and which of bytes or operations sets it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / PEAK_OPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def free_cuda() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 class ReplicaCap:
@@ -101,29 +132,36 @@ def env_phase() -> str:
     return smi
 
 
-def build_phase(ops) -> None:
-    t0 = time.monotonic()
-    lib = ops.library()
-    secs = time.monotonic() - t0
-    log = ops.build.library_path("decode_attention", ops.SOURCES).with_suffix(".log")
-    usage = [ln.strip() for ln in log.read_text().splitlines()
-             if "registers" in ln or "spill" in ln] if log.exists() else []
-    phase("build", kernel="decode_attention", seconds=f"{secs:.2f}", lib=Path(lib._name).name,
-          ptxas=repr(" | ".join(usage[:12])))
+def build_phase(kernels: dict) -> None:
+    """One nvcc per kernel source, all started together."""
+    def build(ops):
+        t0 = time.monotonic()
+        lib = ops.library()
+        return lib, time.monotonic() - t0
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        built = dict(zip(kernels, pool.map(build, kernels.values())))
+    for name, ops in kernels.items():
+        lib, secs = built[name]
+        log = ops.build.library_path(name, ops.SOURCES).with_suffix(".log")
+        usage = [ln.strip() for ln in log.read_text().splitlines()
+                 if "registers" in ln or "spill" in ln] if log.exists() else []
+        phase("build", kernel=name, seconds=f"{secs:.2f}", lib=Path(lib._name).name,
+              ptxas=repr(" | ".join(usage[:12])))
 
 
-def kernel_phase(ops, ref_fn) -> dict:
-    """decode_attention against its plain version at the main-path shapes."""
-    gen = torch.Generator(device="cuda").manual_seed(0)
+def k1_checks(ops, ref_fn, shape, gen) -> float:
+    """decode_attention against its plain version at one shape: f32 and bf16,
+    softcap off and on, pos at 0, T-1 and random; garbage past pos."""
+    b, t, h, kh, d = shape
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        q = torch.randn(B, 1, H, D, generator=gen, device="cuda").to(dtype)
-        k = torch.randn(B, T, KH, D, generator=gen, device="cuda").to(dtype)
-        v = torch.randn(B, T, KH, D, generator=gen, device="cuda").to(dtype)
-        rand = torch.randint(1, T - 1, (B,), generator=gen, device="cuda")
+        q = torch.randn(b, 1, h, d, generator=gen, device=DEVICE).to(dtype)
+        k = torch.randn(b, t, kh, d, generator=gen, device=DEVICE).to(dtype)
+        v = torch.randn(b, t, kh, d, generator=gen, device=DEVICE).to(dtype)
+        rand = torch.randint(1, t - 1, (b,), generator=gen, device=DEVICE)
         for softcap in (None, 50.0):
-            for pos in ([0, T - 1], [T - 1, 0], rand.tolist()):
-                p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            for pos in ([0, t - 1], [t - 1, 0], rand.tolist()):
+                p = torch.tensor(pos, dtype=torch.int32, device=DEVICE)
                 out = ops.decode_attention(q, k, v, p, softcap=softcap)
                 torch.cuda.synchronize()
                 exp = ref_fn(q, k, v, p, softcap=softcap)
@@ -133,10 +171,10 @@ def kernel_phase(ops, ref_fn) -> dict:
                 torch.testing.assert_close(out.float(), exp.float(), atol=TOL[dtype],
                                            rtol=TOL[dtype])
                 worst = max(worst, err)
-                phase("kernel.check", dtype=str(dtype).split(".")[1], softcap=softcap,
-                      pos=pos, max_abs_err=f"{err:.3g}", tol=TOL[dtype])
+                phase("kernel.check", shape=shape, dtype=str(dtype).split(".")[1],
+                      softcap=softcap, pos=pos, max_abs_err=f"{err:.3g}", tol=TOL[dtype])
         # garbage past pos leaves the output unchanged (keys past pos are never read)
-        p = torch.tensor([40, 90], dtype=torch.int32, device="cuda")
+        p = torch.tensor([40, 90], dtype=torch.int32, device=DEVICE)
         base = ops.decode_attention(q, k, v, p)
         k2, v2 = k.clone(), v.clone()
         k2[:, 100:] = 999.0
@@ -144,17 +182,27 @@ def kernel_phase(ops, ref_fn) -> dict:
         moved = (ops.decode_attention(q, k2, v2, p).float() - base.float()).abs().max().item()
         if moved > 1e-6:
             raise AssertionError(f"keys past pos changed the output by {moved}")
-        phase("kernel.position", dtype=str(dtype).split(".")[1], garbage_past_pos_moved=moved)
+        phase("kernel.position", shape=shape, dtype=str(dtype).split(".")[1],
+              garbage_past_pos_moved=moved)
+    return worst
+
+
+def kernel_phase(ops, ref_fn) -> dict:
+    """decode_attention against its plain version at the main paths' shapes;
+    timed at gemma3-4b's."""
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    worst = max(k1_checks(ops, ref_fn, K1_GEMMA, gen), k1_checks(ops, ref_fn, K1_MOE, gen))
 
     # time at the serving dtype (bf16), no softcap (gemma3), the full cache (pos = T-1)
+    b, t, h, kh, d = K1_GEMMA
     dtype = torch.bfloat16
-    q = torch.randn(B, 1, H, D, generator=gen, device="cuda").to(dtype)
-    k = torch.randn(B, T, KH, D, generator=gen, device="cuda").to(dtype)
-    v = torch.randn(B, T, KH, D, generator=gen, device="cuda").to(dtype)
+    q = torch.randn(b, 1, h, d, generator=gen, device=DEVICE).to(dtype)
+    k = torch.randn(b, t, kh, d, generator=gen, device=DEVICE).to(dtype)
+    v = torch.randn(b, t, kh, d, generator=gen, device=DEVICE).to(dtype)
     out = {}
-    for label, pos in (("full", [T - 1] * B), ("serving", [200, 250])):
-        p = torch.tensor(pos, dtype=torch.int32, device="cuda")
-        mask = (torch.arange(T, device="cuda")[None, :] <= p[:, None].long())[:, None, None, :]
+    for label, pos in (("full", [t - 1] * b), ("serving", [200, 250])):
+        p = torch.tensor(pos, dtype=torch.int32, device=DEVICE)
+        mask = (torch.arange(t, device=DEVICE)[None, :] <= p[:, None].long())[:, None, None, :]
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
         def library():
@@ -163,18 +211,15 @@ def kernel_phase(ops, ref_fn) -> dict:
         lib_err = (library().transpose(1, 2).float() - ref_fn(q, k, v, p).float()).abs().max()
         if lib_err.item() > TOL[dtype]:
             raise AssertionError(f"SDPA disagrees with the plain version by {lib_err.item()}")
-        keys = sum(min(x, T - 1) + 1 for x in pos)
+        keys = sum(min(x, t - 1) + 1 for x in pos)
         es = q.element_size()
-        nbytes = keys * KH * D * 2 * es + 2 * q.numel() * es + p.numel() * 4
-        nops = keys * H * D * 4                       # q.k and p.v, 2 flops per MAC
-        bound = max(nbytes / HBM_BYTES_PER_S, nops / PEAK_OPS[dtype]) * 1e3
+        nbytes = keys * kh * d * 2 * es + 2 * q.numel() * es + p.numel() * 4
+        nops = keys * h * d * 4                       # q.k and p.v, 2 flops per MAC
+        bound_ms, bound_by = bound(nbytes, nops, dtype)
         row = dict(
             ms=time_ms(lambda: ops.decode_attention(q, k, v, p)),
             plain_ms=time_ms(lambda: ref_fn(q, k, v, p)),
-            library_ms=time_ms(library),
-            bound_ms=bound,
-            bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= nops / PEAK_OPS[dtype]
-            else "operations")
+            library_ms=time_ms(library), bound_ms=bound_ms, bound_by=bound_by)
         phase("kernel.time", pos=label, positions=pos, bytes=nbytes,
               kernel_us=f"{row['ms'] * 1e3:.3f}", plain_us=f"{row['plain_ms'] * 1e3:.3f}",
               library_us=f"{row['library_ms'] * 1e3:.3f}",
@@ -184,7 +229,77 @@ def kernel_phase(ops, ref_fn) -> dict:
     return dict(out["full"], max_abs_err=worst)
 
 
-def profile_steps(rep, steps: int = 10) -> None:
+def moe_gemm_phase(ops, ref_fn) -> dict:
+    """moe_expert_ffn against its plain version, at the tolerance of
+    tests/test_kernels.py::test_moe_gemm_sweep (_tol * 4); timed at the
+    deepseek-moe-16b decode call in bf16."""
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+
+    def inputs(e, c, d, f, dtype):
+        # scaled as in tests/test_kernels.py: x * 0.5, weights / sqrt(fan-in)
+        def draw(shape, scale):
+            return (torch.randn(shape, generator=gen, device=DEVICE) * scale).to(dtype)
+        return (draw((e, c, d), 0.5), draw((e, d, f), d ** -0.5), draw((e, d, f), d ** -0.5),
+                draw((e, f, d), f ** -0.5))
+
+    worst = 0.0
+    for shape in K3_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = 4 * TOL[dtype]
+            x, wg, wu, wo = inputs(*shape, dtype)
+            x[:, 1::3] = 0.0                    # every third token row empty
+            out = ops.moe_expert_ffn(x, wg, wu, wo)
+            torch.cuda.synchronize()
+            exp = ref_fn(x, wg, wu, wo)
+            if not torch.isfinite(out).all():
+                raise AssertionError(f"non-finite kernel output {shape} {dtype}")
+            zero_rows_nonzero = torch.count_nonzero(out[:, 1::3]).item()
+            if zero_rows_nonzero:
+                raise AssertionError(f"zero rows of x gave {zero_rows_nonzero} nonzero outputs")
+            err = (out.float() - exp.float()).abs().max().item()
+            torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
+            worst = max(worst, err)
+            phase("kernel.moe_gemm.check", shape=shape, dtype=str(dtype).split(".")[1],
+                  max_abs_err=f"{err:.3g}", tol=tol, zero_rows_exact=True)
+            del x, wg, wu, wo, out, exp
+            free_cuda()
+
+    dtype = torch.bfloat16
+    e, c, d, f = K3_DECODE
+    x, wg, wu, wo = inputs(e, c, d, f, dtype)
+
+    def library():
+        # a chain of cuBLAS calls, not one call: no single PyTorch op computes it
+        h = torch.nn.functional.silu(torch.bmm(x, wg)) * torch.bmm(x, wu)
+        return torch.bmm(h, wo)
+    lib_err = (library().float() - ref_fn(x, wg, wu, wo).float()).abs().max().item()
+    if lib_err > 4 * TOL[dtype]:
+        raise AssertionError(f"the bmm chain disagrees with the plain version by {lib_err}")
+    es = x.element_size()
+    nbytes = (3 * e * d * f + 2 * e * c * d) * es
+    nops = 6 * e * c * d * f
+    bound_ms, bound_by = bound(nbytes, nops, dtype)
+    row = dict(ms=time_ms(lambda: ops.moe_expert_ffn(x, wg, wu, wo)),
+               plain_ms=time_ms(lambda: ref_fn(x, wg, wu, wo), iters=20),
+               library_ms=time_ms(library), bound_ms=bound_ms, bound_by=bound_by,
+               max_abs_err=worst)
+    phase("kernel.moe_gemm.time", shape=K3_DECODE, dtype="bfloat16", bytes=nbytes, ops=nops,
+          kernel_us=f"{row['ms'] * 1e3:.3f}", plain_us=f"{row['plain_ms'] * 1e3:.3f}",
+          library_bmm_chain_us=f"{row['library_ms'] * 1e3:.3f}",
+          bound_us=f"{row['bound_ms'] * 1e3:.4f}", bound_by=bound_by,
+          bound_share=f"{row['bound_ms'] / row['ms']:.4f}")
+    return row
+
+
+def per_step_launches(cfg, stack) -> dict:
+    """Kernel launches one decode step makes: K1 on every full-cache MHA/GQA
+    layer (MLA makes none), K3 once on every moe layer (one dispatch group)."""
+    return {"decode_attention": (0 if cfg.use_mla else
+                                 sum(w is None for w in stack.layer_windows(cfg))),
+            "moe_gemm": sum(k == "moe" for k in stack.layer_kinds(cfg))}
+
+
+def profile_steps(rep, name: str, steps: int = 10) -> None:
     """Where a warm decode step's time goes: the device's busy time (sum of
     kernel times; one stream, so kernels do not overlap) against the host's
     wall time.  The profiler adds host overhead, so this wall time is above
@@ -197,111 +312,229 @@ def profile_steps(rep, steps: int = 10) -> None:
         wall = (time.monotonic() - t0) / steps
     kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kern:
-        phase("model.profile", device_busy="not measured (the profiler saw no kernels)")
+        phase("model.profile", arch=name,
+              device_busy="not measured (the profiler saw no kernels)")
         return
+
+    def calls_us(*names):
+        mine = [e for e in kern if any(n in e.key for n in names)]
+        return (sum(e.count for e in mine if names[0] in e.key),
+                sum(e.self_device_time_total for e in mine))
     busy = sum(e.self_device_time_total for e in kern) / steps / 1e6
-    k1_calls = sum(e.count for e in kern if "decode_split_kernel" in e.key)
-    k1_us = sum(e.self_device_time_total for e in kern if "decode_split_kernel" in e.key
-                or "decode_combine_kernel" in e.key)
+    k1_calls, k1_us = calls_us("decode_split_kernel", "decode_combine_kernel")
+    k3_calls, k3_us = calls_us("moe_up_kernel", "moe_down_kernel")
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
-    phase("model.profile", steps=steps, wall_ms_per_step=f"{wall * 1e3:.3f}",
+    phase("model.profile", arch=name, steps=steps, wall_ms_per_step=f"{wall * 1e3:.3f}",
           device_busy_ms_per_step=f"{busy * 1e3:.3f}", idle_share=f"{1 - busy / wall:.4f}",
           kernels_per_step=f"{sum(e.count for e in kern) / steps:.1f}",
           decode_attention_calls=k1_calls,
           decode_attention_us_per_call=f"{k1_us / max(k1_calls, 1):.2f}",
+          moe_gemm_calls=k3_calls, moe_gemm_us_per_call=f"{k3_us / max(k3_calls, 1):.2f}",
+          moe_gemm_ms_per_step=f"{k3_us / steps / 1e3:.3f}",
           top=repr("; ".join(f"{e.key[:48]} {e.self_device_time_total / steps / 1e3:.3f}ms "
                              f"x{e.count / steps:.0f}" for e in top)))
 
 
-def model_phase(cfg, registry, stack, ModelReplica, ServeRequest) -> None:
-    n_params = registry.param_count(cfg)
-    if n_params != 3_879_925_248:
-        raise AssertionError(f"gemma3-4b has {n_params} parameters, expected 3879925248")
-    rep = ModelReplica(cfg, max_slots=MAX_SLOTS, max_seq=MAX_SEQ, seed=0, device="cuda")
+@contextlib.contextmanager
+def plain_kernels(attention, moe, plain: dict):
+    """The model's kernel calls swapped for their plain torch versions: the
+    same fp32 arithmetic on the same device, with no launch."""
+    saved = attention.decode_attention, moe.moe_expert_ffn
+    attention.decode_attention = plain["decode_attention"]
+    moe.moe_expert_ffn = plain["moe_gemm"]
+    try:
+        yield
+    finally:
+        attention.decode_attention, moe.moe_expert_ffn = saved
+
+
+@contextlib.contextmanager
+def recorded_calls(attention, moe, into: list):
+    """Record every kernel call the model makes: (kernel, args, kwargs, output)."""
+    saved = attention.decode_attention, moe.moe_expert_ffn
+
+    def recording(name, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            into.append((name, args, kw, out))
+            return out
+        return call
+    attention.decode_attention = recording("decode_attention", saved[0])
+    moe.moe_expert_ffn = recording("moe_gemm", saved[1])
+    try:
+        yield
+    finally:
+        attention.decode_attention, moe.moe_expert_ffn = saved
+
+
+@contextlib.contextmanager
+def recorded_routes(moe, into: list):
+    """Record each moe layer's expert picks (sorted ids per token)."""
+    route = moe._route
+
+    def recording(cfg, p, xg):
+        out = route(cfg, p, xg)
+        into.append(out[1].sort(-1).values)
+        return out
+    moe._route = recording
+    try:
+        yield
+    finally:
+        moe._route = route
+
+
+def model_phase(cfg, n_params: int, n_bytes: int, kernels: dict, plain: dict, registry,
+                stack, ModelReplica, ServeRequest) -> dict:
+    """One full-width replica: counts, cold start, timed steps with their
+    kernel launches, a profiled step, and one step checked: every kernel call
+    in it against its plain version on the inputs the model gave it, and its
+    logits against the model with plain versions in the kernels' place and
+    against ``attn_impl="ref"``.  Returns the launches of the timed steps."""
+    from repro_torch.models import attention, moe
+    got = registry.param_count(cfg)
+    if got != n_params:
+        raise AssertionError(f"{cfg.name} has {got} parameters, expected {n_params}")
+    rep = ModelReplica(cfg, max_slots=MAX_SLOTS, max_seq=MAX_SEQ, seed=0, device=DEVICE)
+    if rep.memory_bytes() != n_bytes:
+        raise AssertionError(f"{cfg.name} replica holds {rep.memory_bytes()} B, "
+                             f"expected {n_bytes}")
     rng = np.random.default_rng(1)
     for i in range(MAX_SLOTS):
         prompt = rng.integers(0, cfg.vocab_size, 300).tolist()
         rep.add(ServeRequest(rid=i, fn=0, prompt=prompt, max_new_tokens=1), 0.0)
+    per_step = per_step_launches(cfg, stack)
+    for ops in kernels.values():
+        ops.launches = 0                       # count only the timed steps' launches
     step_s = []
     for s in range(40):
         t0 = time.monotonic()
         rep.step(float(s))                      # ends in the step's host sync
         step_s.append(time.monotonic() - t0)
-    profile_steps(rep)
-    # one step on the same weights and cache, kernel vs the plain attention
+    launches = {name: ops.launches for name, ops in kernels.items()}
+    for name, n in launches.items():
+        if n != per_step[name] * len(step_s):
+            raise AssertionError(f"{name} launched {n} times in {len(step_s)} decode steps "
+                                 f"of {cfg.name}; expected {per_step[name]} per step")
+    profile_steps(rep, cfg.name)
+    # one step on the same weights and cache, three ways: the kernels (every
+    # call recorded); their plain versions in their place; the plain torch
+    # model (attn_impl="ref")
     toks = torch.tensor(rng.integers(0, cfg.vocab_size, (MAX_SLOTS, 1)), dtype=torch.int32,
-                        device="cuda")
-    pos = torch.tensor(rep._pos, device="cuda")
-    logits = {}
-    for impl in ("kernel", "ref"):
+                        device=DEVICE)
+    pos = torch.tensor(rep._pos, device=DEVICE)
+    logits, routes, calls = {}, {}, []
+    for label, impl in (("kernel", "kernel"), ("plain", "kernel"), ("ref", "ref")):
         cache = [{n: t.clone() for n, t in layer.items()} for layer in rep.cache]
-        lg, _ = registry.decode_step(cfg.replace(attn_impl=impl), rep.params, cache, toks, pos)
-        logits[impl] = lg.float()
+        routes[label] = []
+        swap = (plain_kernels(attention, moe, plain) if label == "plain"
+                else recorded_calls(attention, moe, calls) if label == "kernel"
+                else contextlib.nullcontext())
+        with swap, recorded_routes(moe, routes[label]):
+            lg, _ = registry.decode_step(cfg.replace(attn_impl=impl), rep.params, cache,
+                                         toks, pos)
+        logits[label] = lg.float()
+        del cache
     if not torch.isfinite(logits["kernel"]).all():
         raise AssertionError("non-finite logits")
     if logits["kernel"].shape != (MAX_SLOTS, 1, cfg.vocab_size):
         raise AssertionError(f"logits shape {tuple(logits['kernel'].shape)}")
-    rel = ((logits["kernel"] - logits["ref"]).abs().max()
-           / logits["ref"].abs().max()).item()
-    if rel > 2e-2:
-        raise AssertionError(f"kernel vs plain logits differ by {rel} (relative)")
-    n_global = sum(w is None for w in stack.layer_windows(cfg))
-    phase("model", arch=cfg.name, params=n_params, global_layers=n_global,
-          memory_bytes=rep.memory_bytes(), cold_start_s=f"{rep.cold_start_s:.4f}",
+    # each kernel call of the step against its plain version on the very
+    # inputs the model gave it, at the kernel phases' tolerances
+    call_err = {name: 0.0 for name in kernels}
+    for name, args, kw, out in calls:
+        exp = plain[name](*args, **kw)
+        tol = TOL[out.dtype] * (4 if name == "moe_gemm" else 1)
+        torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
+        call_err[name] = max(call_err[name], (out.float() - exp.float()).abs().max().item())
+    n_calls = {name: sum(c[0] == name for c in calls) for name in kernels}
+    if n_calls != per_step:
+        raise AssertionError(f"one step of {cfg.name} made kernel calls {n_calls}, "
+                             f"expected {per_step}")
+    del calls
+
+    def rel_err(other):
+        return ((logits["kernel"] - logits[other]).abs().max()
+                / logits[other].abs().max()).item()
+
+    def flips(other):     # tokens whose expert set differs, over all moe layers
+        return sum(int((a != b).any(-1).sum()) for a, b in zip(routes["kernel"], routes[other]))
+    rel, rel_ref = rel_err("plain"), rel_err("ref")
+    # Held on the dense arch only.  On a deep moe model with random weights a
+    # one-ulp bf16 difference in one layer's output grows through the later
+    # layers and can flip near-tied top-k picks, so whole-step logits are
+    # reported there, and the kernels are held call by call above.
+    if not per_step["moe_gemm"] and max(rel, rel_ref) > 2e-2:
+        raise AssertionError(f"kernel logits differ from the plain versions' by {rel} and "
+                             f"from attn_impl=ref by {rel_ref} (relative)")
+    phase("model", arch=cfg.name, params=got, layers=cfg.num_layers,
+          launches_per_step=per_step, memory_bytes=rep.memory_bytes(),
+          cold_start_s=f"{rep.cold_start_s:.4f}",
           decode_step_ms_median=f"{statistics.median(step_s[5:]) * 1e3:.3f}",
-          decode_step_ms_min=f"{min(step_s[5:]) * 1e3:.3f}",
-          pos=rep._pos.tolist(), logits_rel_err_kernel_vs_ref=f"{rel:.3g}")
-    del rep, cache, logits
-    gc.collect()
-    torch.cuda.empty_cache()
+          decode_step_ms_min=f"{min(step_s[5:]) * 1e3:.3f}", launches=launches,
+          pos=rep._pos.tolist(), step_kernel_calls=n_calls,
+          step_calls_max_abs_err_vs_plain={k: f"{v:.3g}" for k, v in call_err.items()},
+          logits_rel_err_kernel_vs_plain=f"{rel:.3g}",
+          routing_flips_kernel_vs_plain=flips("plain"),
+          logits_rel_err_kernel_vs_ref=f"{rel_ref:.3g}",
+          routing_flips_kernel_vs_ref=flips("ref"),
+          moe_tokens_routed=sum(int(r.shape[0] * r.shape[1]) for r in routes["kernel"]))
+    del rep, logits
+    free_cuda()
+    return launches
 
 
-def serve_phase(cfg, ops, stack, ControlPlane, TorchWorkerBackend, make_policy,
-                ServeRequest) -> int:
+def serve_phase(cfg, kernels: dict, stack, ControlPlane, TorchWorkerBackend, make_policy,
+                ServeRequest, *, n_requests: int, prompt_lens: tuple[int, int],
+                max_new_tokens: int, max_replicas: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
-    backend = TorchWorkerBackend(cfg, max_slots=MAX_SLOTS, max_seq=MAX_SEQ, device="cuda")
+    backend = TorchWorkerBackend(cfg, max_slots=MAX_SLOTS, max_seq=MAX_SEQ, device=DEVICE)
     cp = ControlPlane(backend, lambda f: make_policy("sync", keepalive_s=30.0,
                                                       container_concurrency=MAX_SLOTS),
-                      num_functions=2, fleet=ReplicaCap(MAX_REPLICAS))
+                      num_functions=2, fleet=ReplicaCap(max_replicas))
     rng = np.random.default_rng(0)
-    arrivals = np.sort(rng.uniform(0, 4.0, N_REQUESTS))
-    fns = rng.integers(0, 2, N_REQUESTS)
+    arrivals = np.sort(rng.uniform(0, 4.0, n_requests))
+    fns = rng.integers(0, 2, n_requests)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
-               for n in rng.integers(64, 257, N_REQUESTS)]
-    ops.launches = 0                           # count only the main path's launches
+               for n in rng.integers(prompt_lens[0], prompt_lens[1] + 1, n_requests)]
+    for ops in kernels.values():
+        ops.launches = 0                       # count only the main path's launches
     t0 = time.monotonic()
     i = 0
     mem_samples, busy_samples = [], []
     while True:
         now = time.monotonic() - t0
-        while i < N_REQUESTS and arrivals[i] <= now:
+        while i < n_requests and arrivals[i] <= now:
             cp.submit(ServeRequest(rid=i, fn=int(fns[i]), prompt=prompts[i],
-                                   max_new_tokens=MAX_NEW_TOKENS, arrival_t=now), now)
+                                   max_new_tokens=max_new_tokens, arrival_t=now), now)
             i += 1
         cp.tick(now)
         snap = cp.snapshot()
         mem_samples.append(snap["memory_bytes"])
         busy_samples.append(max(snap["busy_memory_bytes"], 1))
-        if i >= N_REQUESTS and len(cp.completed) >= N_REQUESTS:
+        if i >= n_requests and len(cp.completed) >= n_requests:
             break
         if now > 600:
-            raise AssertionError(f"served {len(cp.completed)}/{N_REQUESTS} in 600 s")
+            raise AssertionError(f"served {len(cp.completed)}/{n_requests} in 600 s")
         time.sleep(0.005)
-    launches, steps = ops.launches, backend.decode_steps
+    launches = {name: ops.launches for name, ops in kernels.items()}
+    steps = backend.decode_steps
     wall = time.monotonic() - t0
 
-    if sorted(r.rid for r in cp.completed) != list(range(N_REQUESTS)):
+    if sorted(r.rid for r in cp.completed) != list(range(n_requests)):
         raise AssertionError("not every request was served")
     for r in cp.completed:
-        if len(r.output) != MAX_NEW_TOKENS or not all(0 <= x < cfg.vocab_size for x in r.output):
+        if len(r.output) != max_new_tokens or not all(0 <= x < cfg.vocab_size
+                                                      for x in r.output):
             raise AssertionError(f"request {r.rid} returned {r.output}")
-    per_step = sum(w is None for w in stack.layer_windows(cfg))
-    if launches != per_step * steps or steps == 0:
-        raise AssertionError(f"decode kernel launched {launches} times in {steps} decode "
-                             f"steps; expected {per_step} per step")
+    per_step = per_step_launches(cfg, stack)
+    for name, n in launches.items():
+        if n != per_step[name] * steps or steps == 0:
+            raise AssertionError(f"{name} launched {n} times in {steps} decode steps of "
+                                 f"{cfg.name}; expected {per_step[name]} per step")
     lat = [r.done_t - r.arrival_t for r in cp.completed]
-    phase("serve", requests=N_REQUESTS, served=len(cp.completed), wall_s=f"{wall:.3f}",
-          decode_steps=steps, kernel_launches=launches,
+    phase("serve", arch=cfg.name, requests=n_requests, served=len(cp.completed),
+          wall_s=f"{wall:.3f}", decode_steps=steps, launches_per_step=per_step,
+          kernel_launches=launches,
           p50_s=f"{np.percentile(lat, 50):.4f}", p99_s=f"{np.percentile(lat, 99):.4f}",
           cold_fraction=f"{np.mean([r.cold for r in cp.completed]):.3f}",
           creations=backend.creations, teardowns=backend.teardowns,
@@ -309,6 +542,11 @@ def serve_phase(cfg, ops, stack, ControlPlane, TorchWorkerBackend, make_policy,
           normalized_memory=f"{np.mean(mem_samples) / np.mean(busy_samples):.4f}",
           replica_bytes=max((backend.memory_bytes(i) for i in backend.replicas), default=0),
           max_memory_allocated=torch.cuda.max_memory_allocated())
+    # free every replica before the next phase
+    for iid in list(backend.replicas):
+        backend.teardown(iid, time.monotonic() - t0)
+    del cp, backend
+    free_cuda()
     return launches
 
 
@@ -320,29 +558,82 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.core.control_plane import ControlPlane, TorchWorkerBackend
     from repro_torch.core.policies import make_policy
-    from repro_torch.kernels.decode_attention import decode_attention_ref, ops
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+    from repro_torch.kernels.decode_attention import ops as k1_ops
+    from repro_torch.kernels.moe_gemm import moe_expert_ffn_ref
+    from repro_torch.kernels.moe_gemm import ops as k3_ops
     from repro_torch.models import registry, stack
     from repro_torch.serving.engine import ModelReplica, ServeRequest
 
-    env_phase()
-    build_phase(ops)
-    k1 = kernel_phase(ops, decode_attention_ref)
-    cfg = get_config("gemma3-4b").replace(param_dtype="bfloat16", remat="none",
-                                          attn_impl="kernel")
-    model_phase(cfg, registry, stack, ModelReplica, ServeRequest)
-    launches = serve_phase(cfg, ops, stack, ControlPlane, TorchWorkerBackend, make_policy,
-                           ServeRequest)
-    kernels = [{
-        "name": "decode_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
-        "replaces": "src/repro/kernels/decode_attention/kernel.py:69",
-        "launches": launches, "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-        "library_ms": k1["library_ms"]}]
-    print(json.dumps({"kernels": kernels}), flush=True)
+    kernels = {"decode_attention": k1_ops, "moe_gemm": k3_ops}
+    plain = {"decode_attention": decode_attention_ref, "moe_gemm": moe_expert_ffn_ref}
+    paths: dict[str, dict] = {}                # launches per kernel on each driven path
+    t_run = time.monotonic()
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.monotonic()
+        out = fn(*args, **kw)
+        phase("wall", phase=name, seconds=f"{time.monotonic() - t0:.2f}",
+              since_start=f"{time.monotonic() - t_run:.2f}")
+        return out
+
+    def bf16(arch):
+        return get_config(arch).replace(param_dtype="bfloat16", remat="none",
+                                        attn_impl="kernel")
+
+    model_args = (kernels, plain, registry, stack, ModelReplica, ServeRequest)
+    serve_args = (kernels, stack, ControlPlane, TorchWorkerBackend, make_policy, ServeRequest)
+    timed("env", env_phase)
+    timed("build", build_phase, kernels)
+    k1 = timed("kernel", kernel_phase, k1_ops, decode_attention_ref)
+    k3 = timed("kernel.moe_gemm", moe_gemm_phase, k3_ops, moe_expert_ffn_ref)
+
+    gemma = bf16("gemma3-4b")
+    paths["model.gemma3-4b"] = timed("model.gemma3-4b", model_phase, gemma, 3_879_925_248,
+                                     8_087_006_208, *model_args)
+    # 4 x ~8.1 GB resident, well under 80 GB
+    paths["serve.gemma3-4b"] = timed(
+        "serve.gemma3-4b", serve_phase, gemma, *serve_args, n_requests=8,
+        prompt_lens=(64, 256), max_new_tokens=16, max_replicas=4)
+
+    moe = bf16("deepseek-moe-16b")
+    paths["model.deepseek-moe-16b"] = timed(
+        "model.deepseek-moe-16b", model_phase, moe, 16_377_694_208, 33_701_990_400,
+        *model_args)
+    mla = bf16("deepseek-v2-lite-16b")
+    paths["model.deepseek-v2-lite-16b"] = timed(
+        "model.deepseek-v2-lite-16b", model_phase, mla, 15_708_450_304, 31_551_118_336,
+        *model_args)
+    # 2 x 33.7 GB resident
+    paths["serve.deepseek-moe-16b"] = timed(
+        "serve.deepseek-moe-16b", serve_phase, moe, *serve_args, n_requests=6,
+        prompt_lens=(32, 128), max_new_tokens=8, max_replicas=2)
+
+    def per_path(name):
+        return {p: n[name] for p, n in paths.items()}
+    rows = [
+        dict(name="decode_attention", route="cuda",
+             source="src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+             replaces="src/repro/kernels/decode_attention/kernel.py:69", row=k1),
+        dict(name="moe_gemm", route="cuda",
+             source="src/repro_torch/kernels/moe_gemm/csrc/moe_gemm.cu",
+             replaces="src/repro/kernels/moe_gemm/kernel.py:49", row=k3)]
+    out = []
+    for r in rows:
+        row = r.pop("row")
+        launches = per_path(r["name"])
+        out.append(dict(r, launches=sum(launches.values()), launches_per_path=launches,
+                        max_abs_err=row["max_abs_err"], ms=row["ms"],
+                        plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                        bound_by=row["bound_by"], library_ms=row["library_ms"]))
+    for r in out:
+        if r["launches"] == 0:
+            raise AssertionError(f"{r['name']} was never launched on the main paths")
+    print(json.dumps({"kernels": out}), flush=True)
+    # the run uses one card, device 0
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}), flush=True)
+                                             "count": 1}}), flush=True)
     return 0
 
 

@@ -32,7 +32,8 @@ def dense_init(gen, in_dim: int, out_shape, dtype, device) -> torch.Tensor:
     if isinstance(out_shape, int):
         out_shape = (out_shape,)
     scale = 1.0 / math.sqrt(in_dim)
-    return (_normal(gen, (in_dim, *out_shape), device) * scale).to(dtype)
+    # scaled in place: an expert tensor's float32 draw is ~0.7 GB at full width
+    return _normal(gen, (in_dim, *out_shape), device).mul_(scale).to(dtype)
 
 
 def embed_init(gen, vocab: int, dim: int, dtype, device) -> torch.Tensor:

@@ -4,8 +4,8 @@ Every family module implements:
   init_params(cfg, device=, seed=)
   init_cache(cfg, batch, seq_len, device=)
   decode_step(cfg, params, cache, tokens, pos) -> (logits, cache)
-Only ``dense`` is ported; the other families raise and name the ROADMAP
-slice that brings them.
+``dense`` and ``moe`` (with MHA or MLA attention) are ported; the other
+families raise and name the ROADMAP slice that brings them.
 """
 
 from __future__ import annotations
@@ -17,8 +17,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 _LATER = {
-    "vlm": "slice 2 (prefill/forward with the flash-attention kernel K2)",
-    "moe": "slice 3 (the moe family with the moe_gemm kernel K3)",
+    "vlm": "slice 3 (prefill/forward with the flash-attention kernel K2)",
     "ssm": "slice 4 (the ssm family with the rwkv6_scan kernel K4)",
     "hybrid": "ROADMAP Queue 1 item 9 (hymba), after slice 4",
     "encdec": "ROADMAP Queue 1 item 9 (whisper), after slice 4",
@@ -29,6 +28,9 @@ def family_module(cfg: ModelConfig):
     if cfg.family == "dense":
         from repro_torch.models import transformer
         return transformer
+    if cfg.family == "moe":
+        from repro_torch.models import moe
+        return moe
     if cfg.family in _LATER:
         raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is not ported "
                                   f"yet: see ROADMAP.md, {_LATER[cfg.family]}")

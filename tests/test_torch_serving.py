@@ -25,6 +25,8 @@ ROOT = Path(__file__).resolve().parents[1]
 BF16 = dict(param_dtype="bfloat16", remat="none")
 F32 = dict(param_dtype="float32", compute_dtype="float32", remat="none")
 CFG = get_smoke_config("gemma3-4b").replace(**BF16, attn_impl="kernel")
+MOE = "deepseek-moe-16b"
+MOE_CFG = get_smoke_config(MOE).replace(**BF16, attn_impl="kernel")
 
 POLICIES = {
     "sync": dict(keepalive_s=3.0, container_concurrency=2),
@@ -79,8 +81,16 @@ def _run_to_done(rep, reqs, max_steps=60):
 
 def test_replica_greedy_outputs_equal_jax():
     """Same weights (carried across), same prompts: same greedy tokens."""
-    jcfg = jax_smoke("gemma3-4b").replace(**F32)
-    cfg = get_smoke_config("gemma3-4b").replace(**F32, attn_impl="kernel")
+    _greedy_outputs_equal_jax("gemma3-4b")
+
+
+def test_moe_replica_greedy_outputs_equal_jax():
+    _greedy_outputs_equal_jax(MOE)
+
+
+def _greedy_outputs_equal_jax(arch):
+    jcfg = jax_smoke(arch).replace(**F32)
+    cfg = get_smoke_config(arch).replace(**F32, attn_impl="kernel")
     jrep = jengine.ModelReplica(jcfg, max_slots=2, max_seq=32, seed=7)
     rep = tengine.ModelReplica(cfg, max_slots=2, max_seq=32, seed=7, device="cpu")
     rep.params = convert.params_from_jax(cfg, jax.tree.map(np.asarray, jrep.params))
@@ -98,6 +108,12 @@ def test_replica_memory_bytes_equal_jax():
     jrep = jengine.ModelReplica(jax_smoke("gemma3-4b").replace(**BF16),
                                 max_slots=2, max_seq=48)
     rep = tengine.ModelReplica(CFG, max_slots=2, max_seq=48, device="cpu")
+    assert rep.memory_bytes() == jrep.memory_bytes() > 0
+
+
+def test_moe_replica_memory_bytes_equal_jax():
+    jrep = jengine.ModelReplica(jax_smoke(MOE).replace(**BF16), max_slots=2, max_seq=48)
+    rep = tengine.ModelReplica(MOE_CFG, max_slots=2, max_seq=48, device="cpu")
     assert rep.memory_bytes() == jrep.memory_bytes() > 0
 
 
@@ -119,7 +135,15 @@ def test_replica_continuous_batching():
 
 
 def test_control_plane_with_real_torch_replicas_on_cpu():
-    backend = tcp.TorchWorkerBackend(CFG, max_slots=2, max_seq=48, device="cpu")
+    _serve_three_on_cpu(CFG)
+
+
+def test_control_plane_with_real_moe_replicas_on_cpu():
+    _serve_three_on_cpu(MOE_CFG)
+
+
+def _serve_three_on_cpu(cfg):
+    backend = tcp.TorchWorkerBackend(cfg, max_slots=2, max_seq=48, device="cpu")
     cp = tcp.ControlPlane(backend, lambda f: tpolicies.SyncKeepalivePolicy(
         keepalive_s=60.0, container_concurrency=2), num_functions=1)
     t0 = time.monotonic()
@@ -141,9 +165,17 @@ def test_control_plane_with_real_torch_replicas_on_cpu():
 
 
 def test_serve_cli_on_cpu():
+    _serve_cli_on_cpu([])
+
+
+def test_serve_cli_on_cpu_moe():
+    _serve_cli_on_cpu(["--arch", MOE])
+
+
+def _serve_cli_on_cpu(args):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+        [sys.executable, "-m", "repro_torch.launch.serve", *args, "--device", "cpu",
          "--duration", "2", "--rps", "2"],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
