@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving paths once on one NVIDIA GPU, and check them.
+"""Drive the PyTorch/CUDA port's serving and prefill paths once on one NVIDIA GPU, and check them.
 
     python3 chip_smoke.py
 
@@ -17,8 +17,15 @@ card's name and power limit as nvidia-smi gives them on a line of its own):
                   the plain time, SDPA's time and the least time the card
                   could take for the same work, at gemma3-4b's shape
   kernel.moe_gemm the grouped expert FFN (K3) against its plain version, zero
-                  rows exact; at deepseek-moe-16b's decode call its time, the
-                  plain time, a cuBLAS bmm chain's time and the bound
+                  rows exact; at deepseek-moe-16b's decode call (C = 8) and
+                  prefill call (C = 480) its time, the plain time, a cuBLAS
+                  bmm chain's time and the bound
+  kernel.flash_attention
+                  flash attention (K2) against its plain version over the
+                  sweep of tests/test_kernels.py, the model paths' shapes, an
+                  odd S and a q_offset; at gemma3-4b's global and local prefill
+                  shapes its time, the plain time, SDPA's time (and backend)
+                  and the bound
   model           one full-width replica (bf16) per arch: gemma3-4b,
                   deepseek-moe-16b, deepseek-v2-lite-16b (MLA): parameter
                   count, bytes, cold start, decode-step time, kernel launches
@@ -32,6 +39,14 @@ card's name and power limit as nvidia-smi gives them on a line of its own):
                   of gemma3-4b, then of deepseek-moe-16b; each kernel's
                   launch count must be its launches per step x the decode
                   steps taken
+  prefill         registry.prefill at full width (bf16): gemma3-4b at B 2,
+                  S 4096, then deepseek-moe-16b and deepseek-v2-lite-16b at
+                  B 2, S 2048 (4096 tokens, one dispatch group): launches per
+                  prefill, every kernel call held to its plain version, wall
+                  time, tokens/s, device busy time, peak memory, logits
+                  against attn_impl="ref" (held on the dense arch); on
+                  gemma3-4b also 8 decode steps from the filled caches, held to
+                  registry.forward over the S + 8 tokens
 Then one JSON line of per-kernel numbers, and last the result line
 ``{"ok": true, "device": {...}}``.  Any failure ends the run non-zero.
 """
@@ -64,8 +79,34 @@ K1_MOE = (2, 2048, 16, 16, 128)
 MAX_SLOTS, MAX_SEQ = 2, 2048
 # K3's decode call in deepseek-moe-16b and deepseek-v2-lite: (E, C, d, f)
 K3_DECODE = (64, 8, 2048, 1408)
+# and its prefill call at B 2, S 2048: one group of 4096 tokens, C = _capacity = 480
+K3_PREFILL = (64, 480, 2048, 1408)
 K3_SHAPES = [K3_DECODE, (4, 128, 256, 512), (8, 64, 128, 256), (2, 256, 128, 384),
-             (64, 24, 2048, 1408)]      # the sweep of tests/test_kernels.py; C = 24
+             (64, 24, 2048, 1408), K3_PREFILL]   # the sweep of tests/test_kernels.py; C = 24
+# K2: the 5 cases of tests/test_kernels.py::test_flash_attention_sweep, then the
+# model paths' shapes and the edges: (B, S, T, H, K, D, causal, window, softcap, q_offset)
+K2_SHAPES = [
+    (2, 128, 128, 4, 2, 64, True, None, None, 0),
+    (1, 256, 256, 8, 8, 64, True, 64, None, 0),
+    (2, 128, 128, 4, 4, 128, True, None, 50.0, 0),
+    (1, 128, 128, 2, 1, 64, False, None, None, 0),
+    (1, 192, 192, 4, 2, 64, True, 32, 30.0, 0),
+    (2, 4096, 4096, 8, 4, 256, True, None, None, 0),     # gemma3-4b global layer
+    (2, 4096, 4096, 8, 4, 256, True, 1024, None, 0),     # gemma3-4b local layer
+    (2, 2048, 2048, 16, 16, 128, True, None, None, 0),   # deepseek-moe-16b
+    (1, 1000, 1000, 8, 4, 256, True, 100, None, 0),      # odd S
+    (2, 64, 200, 4, 2, 64, True, None, None, 136),       # q_offset: a chunk after 136 keys
+]
+K2_GLOBAL, K2_LOCAL = K2_SHAPES[5], K2_SHAPES[6]
+PREFILL_B, PREFILL_S_GEMMA, PREFILL_S_MOE, DECODE_AFTER = 2, 4096, 2048, 8
+# relative bounds (max |diff| / max |logit|) of the dense arch's bf16 logits:
+# prefill with the kernels against attn_impl="ref", and decode after prefill
+# against one forward over all the tokens.  Both sides compute attention in
+# fp32 but round to bf16 at other places (other kernels, other GEMM shapes),
+# and one-ulp differences grow through 34 layers: 0.009-0.011 on the H100 at
+# full width, 0.016-0.027 on the CPU for narrow 34-layer bf16 gemma3 models,
+# while decoding one position off gives 0.30 there.
+PREFILL_VS_REF_BOUND = DECODE_VS_FORWARD_BOUND = 5e-2
 
 
 def phase(name: str, **fields) -> None:
@@ -265,30 +306,138 @@ def moe_gemm_phase(ops, ref_fn) -> dict:
             free_cuda()
 
     dtype = torch.bfloat16
-    e, c, d, f = K3_DECODE
-    x, wg, wu, wo = inputs(e, c, d, f, dtype)
+    rows = {}
+    for label, shape in (("decode", K3_DECODE), ("prefill", K3_PREFILL)):
+        e, c, d, f = shape
+        x, wg, wu, wo = inputs(e, c, d, f, dtype)
 
-    def library():
-        # a chain of cuBLAS calls, not one call: no single PyTorch op computes it
-        h = torch.nn.functional.silu(torch.bmm(x, wg)) * torch.bmm(x, wu)
-        return torch.bmm(h, wo)
-    lib_err = (library().float() - ref_fn(x, wg, wu, wo).float()).abs().max().item()
-    if lib_err > 4 * TOL[dtype]:
-        raise AssertionError(f"the bmm chain disagrees with the plain version by {lib_err}")
-    es = x.element_size()
-    nbytes = (3 * e * d * f + 2 * e * c * d) * es
-    nops = 6 * e * c * d * f
-    bound_ms, bound_by = bound(nbytes, nops, dtype)
-    row = dict(ms=time_ms(lambda: ops.moe_expert_ffn(x, wg, wu, wo)),
-               plain_ms=time_ms(lambda: ref_fn(x, wg, wu, wo), iters=20),
-               library_ms=time_ms(library), bound_ms=bound_ms, bound_by=bound_by,
-               max_abs_err=worst)
-    phase("kernel.moe_gemm.time", shape=K3_DECODE, dtype="bfloat16", bytes=nbytes, ops=nops,
-          kernel_us=f"{row['ms'] * 1e3:.3f}", plain_us=f"{row['plain_ms'] * 1e3:.3f}",
-          library_bmm_chain_us=f"{row['library_ms'] * 1e3:.3f}",
-          bound_us=f"{row['bound_ms'] * 1e3:.4f}", bound_by=bound_by,
-          bound_share=f"{row['bound_ms'] / row['ms']:.4f}")
-    return row
+        def library():
+            # a chain of cuBLAS calls, not one call: no single PyTorch op computes it
+            h = torch.nn.functional.silu(torch.bmm(x, wg)) * torch.bmm(x, wu)
+            return torch.bmm(h, wo)
+        lib_err = (library().float() - ref_fn(x, wg, wu, wo).float()).abs().max().item()
+        if lib_err > 4 * TOL[dtype]:
+            raise AssertionError(f"the bmm chain disagrees with the plain version by {lib_err}")
+        es = x.element_size()
+        nbytes = (3 * e * d * f + 2 * e * c * d) * es
+        nops = 6 * e * c * d * f
+        bound_ms, bound_by = bound(nbytes, nops, dtype)
+        row = dict(ms=time_ms(lambda: ops.moe_expert_ffn(x, wg, wu, wo)),
+                   plain_ms=time_ms(lambda: ref_fn(x, wg, wu, wo), iters=20),
+                   library_ms=time_ms(library), bound_ms=bound_ms, bound_by=bound_by,
+                   max_abs_err=worst)
+        phase("kernel.moe_gemm.time", call=label, shape=shape, dtype="bfloat16", bytes=nbytes,
+              ops=nops, kernel_us=f"{row['ms'] * 1e3:.3f}",
+              plain_us=f"{row['plain_ms'] * 1e3:.3f}",
+              library_bmm_chain_us=f"{row['library_ms'] * 1e3:.3f}",
+              bound_us=f"{row['bound_ms'] * 1e3:.4f}", bound_by=bound_by,
+              bound_share=f"{row['bound_ms'] / row['ms']:.4f}")
+        rows[label] = row
+        del x, wg, wu, wo
+        free_cuda()
+    return dict(rows["decode"], prefill_call=rows["prefill"])
+
+
+def fa_work(shape, es: int) -> tuple[int, int]:
+    """(bytes, flops) of one flash-attention call: q, k, v read once and out
+    written once; 4 D flops (q . k and p . v) per visible (query, key) pair
+    and query head, counted from this call's masks."""
+    b, s, t, h, kh, d, causal, window, _, q_offset = shape
+    qpos = np.arange(s) + q_offset
+    hi = np.minimum(t, qpos + 1) if causal else np.full(s, t)
+    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(s, np.int64)
+    pairs = int(np.maximum(hi - lo, 0).sum())
+    return (2 * b * s * h * d + 2 * b * t * kh * d) * es, 4 * d * pairs * b * h
+
+
+def device_kernels(fn, reps: int = 1):
+    """Run fn reps times under the profiler -> (host wall s per rep, the
+    profiler's CUDA kernel events; empty if it saw none)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.monotonic() - t0) / reps
+    return wall, [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def flash_attention_phase(ops, ref_fn, visible) -> dict:
+    """flash_attention against its plain version over K2_SHAPES in f32 and
+    bf16; timed at gemma3-4b's global and local prefill shapes (bf16)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+
+    def inputs(shape, dtype):
+        b, s, t, h, kh, d = shape[:6]
+        return (torch.randn(dims, generator=gen, device=DEVICE).to(dtype)
+                for dims in ((b, s, h, d), (b, t, kh, d), (b, t, kh, d)))
+
+    def kw(shape):
+        causal, window, softcap, q_offset = shape[6:]
+        return dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
+
+    worst = 0.0
+    for shape in K2_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = inputs(shape, dtype)
+            out = ops.flash_attention(q, k, v, **kw(shape))
+            torch.cuda.synchronize()
+            exp = ref_fn(q, k, v, **kw(shape))
+            if not torch.isfinite(out).all():
+                raise AssertionError(f"non-finite kernel output {shape} {dtype}")
+            err = (out.float() - exp.float()).abs().max().item()
+            torch.testing.assert_close(out.float(), exp.float(), atol=TOL[dtype],
+                                       rtol=TOL[dtype])
+            worst = max(worst, err)
+            phase("kernel.flash_attention.check", shape=shape, dtype=str(dtype).split(".")[1],
+                  max_abs_err=f"{err:.3g}", tol=TOL[dtype])
+            del q, k, v, out, exp
+            free_cuda()
+
+    dtype = torch.bfloat16
+    rows = {}
+    for label, shape in (("global", K2_GLOBAL), ("local", K2_LOCAL)):
+        b, s, t, h, kh, d, _, window = shape[:8]
+        q, k, v = inputs(shape, dtype)
+        # SDPA on its own (B, H, S, D) layout; the local layer's window as a
+        # boolean mask, which rules out the flash backend
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        if window is None:
+            def library():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+        else:
+            mask = visible(s, t, causal=True, window=window, q_offset=0, device=DEVICE)
+
+            def library():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        exp = ref_fn(q, k, v, **kw(shape))
+        lib_err = (library().transpose(1, 2).float() - exp.float()).abs().max().item()
+        if lib_err > TOL[dtype]:
+            raise AssertionError(f"SDPA disagrees with the plain version by {lib_err}")
+        del exp
+        _, kern = device_kernels(library)
+        backend = sorted({e.key[:60] for e in kern})
+        nbytes, nops = fa_work(shape, q.element_size())
+        bound_ms, bound_by = bound(nbytes, nops, dtype)
+        row = dict(ms=time_ms(lambda: ops.flash_attention(q, k, v, **kw(shape)), iters=20),
+                   plain_ms=time_ms(lambda: ref_fn(q, k, v, **kw(shape)), iters=5),
+                   library_ms=time_ms(library, iters=20), bound_ms=bound_ms,
+                   bound_by=bound_by, max_abs_err=worst)
+        phase("kernel.flash_attention.time", layer=label, shape=shape, dtype="bfloat16",
+              bytes=nbytes, ops=nops, kernel_us=f"{row['ms'] * 1e3:.3f}",
+              plain_us=f"{row['plain_ms'] * 1e3:.3f}",
+              library_sdpa_us=f"{row['library_ms'] * 1e3:.3f}", sdpa_kernels=repr(backend),
+              bound_us=f"{row['bound_ms'] * 1e3:.4f}", bound_by=bound_by,
+              bound_share=f"{row['bound_ms'] / row['ms']:.4f}",
+              achieved_tflops=f"{nops / row['ms'] / 1e9:.2f}")
+        rows[label] = row
+        del q, k, v, qt, kt, vt
+        free_cuda()
+    return dict(rows["global"], local_layer=rows["local"])
 
 
 def per_step_launches(cfg, stack) -> dict:
@@ -296,7 +445,40 @@ def per_step_launches(cfg, stack) -> dict:
     layer (MLA makes none), K3 once on every moe layer (one dispatch group)."""
     return {"decode_attention": (0 if cfg.use_mla else
                                  sum(w is None for w in stack.layer_windows(cfg))),
+            "flash_attention": 0,
             "moe_gemm": sum(k == "moe" for k in stack.layer_kinds(cfg))}
+
+
+def per_prefill_launches(cfg, stack, moe, tokens: int) -> dict:
+    """Kernel launches one prefill (or forward) of ``tokens`` tokens makes: K2
+    on every MHA/GQA layer, local and global (MLA's is plain torch), K3 once
+    per dispatch group on every moe layer."""
+    groups = tokens // min(moe.MOE_GROUP, tokens)
+    return {"decode_attention": 0,
+            "flash_attention": 0 if cfg.use_mla else cfg.num_layers,
+            "moe_gemm": groups * sum(k == "moe" for k in stack.layer_kinds(cfg))}
+
+
+KERNEL_NAMES = {"decode_attention": ("decode_split_kernel", "decode_combine_kernel"),
+                "flash_attention": ("fa_fwd_",),
+                "moe_gemm": ("moe_up_kernel", "moe_down_kernel")}
+
+
+def kernel_summary(kern, reps: int) -> dict:
+    """Device time per rep (ms), each of our kernels' calls and time per call
+    (us), and the five kernels that took the most time, from profiler events."""
+    busy = sum(e.self_device_time_total for e in kern) / reps / 1e3
+    out = dict(device_busy_ms=busy, kernels=sum(e.count for e in kern) / reps)
+    for name, keys in KERNEL_NAMES.items():
+        mine = [e for e in kern if any(k in e.key for k in keys)]
+        calls = sum(e.count for e in mine if keys[0] in e.key)
+        us = sum(e.self_device_time_total for e in mine)
+        out[name] = dict(calls=calls, us_per_call=round(us / max(calls, 1), 2),
+                         ms_per_rep=round(us / reps / 1e3, 3))
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
+    out["top"] = "; ".join(f"{e.key[:48]} {e.self_device_time_total / reps / 1e3:.3f}ms "
+                           f"x{e.count / reps:.0f}" for e in top)
+    return out
 
 
 def profile_steps(rep, name: str, steps: int = 10) -> None:
@@ -304,67 +486,70 @@ def profile_steps(rep, name: str, steps: int = 10) -> None:
     kernel times; one stream, so kernels do not overlap) against the host's
     wall time.  The profiler adds host overhead, so this wall time is above
     an unprofiled step's."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        for s in range(steps):
-            rep.step(float(s))
-        wall = (time.monotonic() - t0) / steps
-    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    steps_done = iter(range(steps))
+    wall, kern = device_kernels(lambda: rep.step(float(next(steps_done))), steps)
     if not kern:
         phase("model.profile", arch=name,
               device_busy="not measured (the profiler saw no kernels)")
         return
-
-    def calls_us(*names):
-        mine = [e for e in kern if any(n in e.key for n in names)]
-        return (sum(e.count for e in mine if names[0] in e.key),
-                sum(e.self_device_time_total for e in mine))
-    busy = sum(e.self_device_time_total for e in kern) / steps / 1e6
-    k1_calls, k1_us = calls_us("decode_split_kernel", "decode_combine_kernel")
-    k3_calls, k3_us = calls_us("moe_up_kernel", "moe_down_kernel")
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
+    summ = kernel_summary(kern, steps)
+    busy = summ["device_busy_ms"] / 1e3
     phase("model.profile", arch=name, steps=steps, wall_ms_per_step=f"{wall * 1e3:.3f}",
           device_busy_ms_per_step=f"{busy * 1e3:.3f}", idle_share=f"{1 - busy / wall:.4f}",
-          kernels_per_step=f"{sum(e.count for e in kern) / steps:.1f}",
-          decode_attention_calls=k1_calls,
-          decode_attention_us_per_call=f"{k1_us / max(k1_calls, 1):.2f}",
-          moe_gemm_calls=k3_calls, moe_gemm_us_per_call=f"{k3_us / max(k3_calls, 1):.2f}",
-          moe_gemm_ms_per_step=f"{k3_us / steps / 1e3:.3f}",
-          top=repr("; ".join(f"{e.key[:48]} {e.self_device_time_total / steps / 1e3:.3f}ms "
-                             f"x{e.count / steps:.0f}" for e in top)))
+          kernels_per_step=f"{summ['kernels']:.1f}",
+          decode_attention=summ["decode_attention"], moe_gemm=summ["moe_gemm"],
+          top=repr(summ["top"]))
+
+
+def kernel_sites(attention, moe) -> list:
+    """(module, attribute, kernel) of every kernel call the models make."""
+    return [(attention, "decode_attention", "decode_attention"),
+            (attention, "flash_attention", "flash_attention"),
+            (moe, "moe_expert_ffn", "moe_gemm")]
 
 
 @contextlib.contextmanager
-def plain_kernels(attention, moe, plain: dict):
-    """The model's kernel calls swapped for their plain torch versions: the
-    same fp32 arithmetic on the same device, with no launch."""
-    saved = attention.decode_attention, moe.moe_expert_ffn
-    attention.decode_attention = plain["decode_attention"]
-    moe.moe_expert_ffn = plain["moe_gemm"]
+def swapped_kernels(attention, moe, make):
+    """Each kernel call of the models replaced by make(kernel, wrapper)."""
+    sites = kernel_sites(attention, moe)
+    saved = [getattr(mod, attr) for mod, attr, _ in sites]
+    for (mod, attr, name), fn in zip(sites, saved):
+        setattr(mod, attr, make(name, fn))
     try:
         yield
     finally:
-        attention.decode_attention, moe.moe_expert_ffn = saved
+        for (mod, attr, _), fn in zip(sites, saved):
+            setattr(mod, attr, fn)
 
 
-@contextlib.contextmanager
+def plain_kernels(attention, moe, plain: dict):
+    """The model's kernel calls swapped for their plain torch versions: the
+    same fp32 arithmetic on the same device, with no launch."""
+    return swapped_kernels(attention, moe, lambda name, fn: plain[name])
+
+
 def recorded_calls(attention, moe, into: list):
     """Record every kernel call the model makes: (kernel, args, kwargs, output)."""
-    saved = attention.decode_attention, moe.moe_expert_ffn
-
     def recording(name, fn):
         def call(*args, **kw):
             out = fn(*args, **kw)
             into.append((name, args, kw, out))
             return out
         return call
-    attention.decode_attention = recording("decode_attention", saved[0])
-    moe.moe_expert_ffn = recording("moe_gemm", saved[1])
-    try:
-        yield
-    finally:
-        attention.decode_attention, moe.moe_expert_ffn = saved
+    return swapped_kernels(attention, moe, recording)
+
+
+def hold_calls(calls: list, plain: dict) -> dict:
+    """Each recorded kernel call against its plain version on the very inputs
+    the model gave it, at the kernel phases' tolerances -> worst error per kernel."""
+    err: dict = {}
+    for name, args, kw, out in calls:
+        exp = plain[name](*args, **kw)
+        tol = TOL[out.dtype] * (4 if name == "moe_gemm" else 1)
+        torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
+        err[name] = max(err.get(name, 0.0), (out.float() - exp.float()).abs().max().item())
+        del exp
+    return err
 
 
 @contextlib.contextmanager
@@ -440,12 +625,7 @@ def model_phase(cfg, n_params: int, n_bytes: int, kernels: dict, plain: dict, re
         raise AssertionError(f"logits shape {tuple(logits['kernel'].shape)}")
     # each kernel call of the step against its plain version on the very
     # inputs the model gave it, at the kernel phases' tolerances
-    call_err = {name: 0.0 for name in kernels}
-    for name, args, kw, out in calls:
-        exp = plain[name](*args, **kw)
-        tol = TOL[out.dtype] * (4 if name == "moe_gemm" else 1)
-        torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
-        call_err[name] = max(call_err[name], (out.float() - exp.float()).abs().max().item())
+    call_err = hold_calls(calls, plain)
     n_calls = {name: sum(c[0] == name for c in calls) for name in kernels}
     if n_calls != per_step:
         raise AssertionError(f"one step of {cfg.name} made kernel calls {n_calls}, "
@@ -550,6 +730,152 @@ def serve_phase(cfg, kernels: dict, stack, ControlPlane, TorchWorkerBackend, mak
     return launches
 
 
+def counted(kernels: dict, fn):
+    """Run fn with every kernel's launch count set to 0 just before and read
+    just after -> (fn's result, launches per kernel)."""
+    for ops in kernels.values():
+        ops.launches = 0
+    out = fn()
+    return out, {name: ops.launches for name, ops in kernels.items()}
+
+
+def rel_max_err(a, b) -> float:
+    """max |a - b| / max |b| over float32 copies, a slice of rows at a time
+    (the bf16 logits of a prefill are GBs)."""
+    num = den = 0.0
+    for i in range(0, a.shape[1], 512):
+        x, y = a[:, i:i + 512].float(), b[:, i:i + 512].float()
+        num = max(num, (x - y).abs().max().item())
+        den = max(den, y.abs().max().item())
+    return num / den
+
+
+def prefill_phase(cfg, n_params: int, kernels: dict, plain: dict, registry, stack, *,
+                  batch: int, seq: int, decode_steps: int, hold_logits: bool) -> dict:
+    """registry.prefill at full width from random weights: kernel launches per
+    prefill, every kernel call held to its plain version on the model's own
+    inputs, wall time and tokens/s, device busy time, peak memory, logits
+    against attn_impl="ref" (held on a dense arch, reported with routing flips
+    on a moe arch).  With decode_steps, that many decode steps continue from
+    the filled caches and are held to one registry.forward over all the
+    tokens.  Returns the launches of each path it drove."""
+    from repro_torch.models import attention, moe
+    params = registry.init_params(cfg, device=DEVICE, seed=0)
+    got = sum(t.numel() for t in registry.leaves(params))
+    if got != n_params:
+        raise AssertionError(f"{cfg.name} has {got} parameters, expected {n_params}")
+    rng = np.random.default_rng(2)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (batch, seq + decode_steps)),
+                        dtype=torch.int32, device=DEVICE)
+    prompt = {"tokens": toks[:, :seq]}
+    cache = registry.init_cache(cfg, batch, seq + decode_steps, device=DEVICE)
+    expect = per_prefill_launches(cfg, stack, moe, batch * seq)
+    paths = {}
+
+    # the main path: one prefill, every kernel call recorded
+    calls, routes_k = [], []
+
+    def main_path():
+        with recorded_calls(attention, moe, calls), recorded_routes(moe, routes_k):
+            out = registry.prefill(cfg, params, cache, prompt)
+        torch.cuda.synchronize()
+        return out
+    t0 = time.monotonic()
+    (logits, _), paths[f"prefill.{cfg.name}"] = counted(kernels, main_path)
+    first_s = time.monotonic() - t0
+    if paths[f"prefill.{cfg.name}"] != expect:
+        raise AssertionError(f"a prefill of {cfg.name} launched {paths[f'prefill.{cfg.name}']}"
+                             f", expected {expect}")
+    if logits.shape != (batch, seq, cfg.vocab_size) or not torch.isfinite(logits).all():
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} or not finite")
+    call_err = hold_calls(calls, plain)
+    n_calls = {name: sum(c[0] == name for c in calls) for name in kernels}
+    del calls
+
+    # timed and profiled prefills (the cache is refilled with the same values)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    registry.prefill(cfg, params, cache, prompt)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    prof_wall, kern = device_kernels(lambda: registry.prefill(cfg, params, cache, prompt))
+    summ = kernel_summary(kern, 1) if kern else None
+
+    # the same prefill under attn_impl="ref" on a cache of its own
+    routes_r = []
+    ref_cache = registry.init_cache(cfg, batch, seq + decode_steps, device=DEVICE)
+    with recorded_routes(moe, routes_r):
+        ref_logits, _ = registry.prefill(cfg.replace(attn_impl="ref"), params, ref_cache,
+                                         prompt)
+    rel_ref = rel_max_err(logits, ref_logits)
+    flips = sum(int((a != b).any(-1).sum()) for a, b in zip(routes_k, routes_r))
+    del ref_logits, ref_cache, logits
+    free_cuda()
+    if hold_logits and rel_ref > PREFILL_VS_REF_BOUND:
+        phase("prefill", arch=cfg.name, logits_rel_err_vs_ref=f"{rel_ref:.3g}",
+              kernel_calls=n_calls, calls_max_abs_err_vs_plain=call_err)
+        raise AssertionError(f"{cfg.name} prefill logits differ from attn_impl=ref by "
+                             f"{rel_ref} (relative), bound {PREFILL_VS_REF_BOUND}")
+    fields = dict(arch=cfg.name, batch=batch, seq=seq, params=got,
+                  launches_per_prefill=paths[f"prefill.{cfg.name}"], kernel_calls=n_calls,
+                  calls_max_abs_err_vs_plain={k: f"{v:.3g}" for k, v in call_err.items()},
+                  first_prefill_s=f"{first_s:.3f}", prefill_s=f"{wall:.4f}",
+                  tokens_per_s=f"{batch * seq / wall:.1f}", peak_memory_allocated=peak,
+                  logits_rel_err_vs_ref=f"{rel_ref:.3g}", routing_flips_vs_ref=flips,
+                  moe_tokens_routed=sum(int(r.shape[0] * r.shape[1]) for r in routes_k))
+    if summ is None:
+        fields["device_busy"] = "not measured (the profiler saw no kernels)"
+    else:
+        busy = summ["device_busy_ms"] / 1e3
+        fields.update(profiled_wall_s=f"{prof_wall:.4f}", device_busy_s=f"{busy:.4f}",
+                      idle_share=f"{1 - busy / prof_wall:.4f}",
+                      kernels_per_prefill=summ["kernels"],
+                      flash_attention=summ["flash_attention"], moe_gemm=summ["moe_gemm"],
+                      top=repr(summ["top"]))
+
+    if decode_steps:
+        # decode from the filled caches (K1 reads the full caches K2's prefill
+        # wrote; the ring caches are read at S > W), then one forward over all
+        # the tokens, which the decode logits are held to
+        def decode():
+            out = []
+            for i in range(decode_steps):
+                pos = torch.full((batch,), seq + i, dtype=torch.int32, device=DEVICE)
+                lg, _ = registry.decode_step(cfg, params, cache, toks[:, seq + i:seq + i + 1],
+                                             pos)
+                out.append(lg[:, 0])
+            torch.cuda.synchronize()
+            return torch.stack(out, 1)
+        dec, paths[f"decode_after_prefill.{cfg.name}"] = counted(kernels, decode)
+        per_step = per_step_launches(cfg, stack)
+        want = {k: n * decode_steps for k, n in per_step.items()}
+        if paths[f"decode_after_prefill.{cfg.name}"] != want:
+            raise AssertionError(f"{decode_steps} decode steps after prefill launched "
+                                 f"{paths[f'decode_after_prefill.{cfg.name}']}, expected {want}")
+        (full, _), paths[f"forward.{cfg.name}"] = counted(
+            kernels, lambda: registry.forward(cfg, params, {"tokens": toks}))
+        want = per_prefill_launches(cfg, stack, moe, batch * (seq + decode_steps))
+        if paths[f"forward.{cfg.name}"] != want:
+            raise AssertionError(f"a forward of {cfg.name} launched "
+                                 f"{paths[f'forward.{cfg.name}']}, expected {want}")
+        rel_dec = rel_max_err(dec, full[:, seq:])
+        del full
+        fields.update(decode_steps=decode_steps,
+                      decode_launches=paths[f"decode_after_prefill.{cfg.name}"],
+                      forward_launches=paths[f"forward.{cfg.name}"],
+                      decode_vs_forward_rel_err=f"{rel_dec:.3g}",
+                      decode_vs_forward_bound=DECODE_VS_FORWARD_BOUND)
+        if not torch.isfinite(dec).all() or rel_dec > DECODE_VS_FORWARD_BOUND:
+            phase("prefill", **fields)
+            raise AssertionError(f"decode after prefill differs from forward by {rel_dec} "
+                                 f"(relative), bound {DECODE_VS_FORWARD_BOUND}")
+    phase("prefill", **fields)
+    del params, cache
+    free_cuda()
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one NVIDIA GPU", file=sys.stderr)
@@ -560,13 +886,17 @@ def main() -> int:
     from repro_torch.core.policies import make_policy
     from repro_torch.kernels.decode_attention import decode_attention_ref
     from repro_torch.kernels.decode_attention import ops as k1_ops
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.flash_attention import ops as k2_ops
+    from repro_torch.kernels.flash_attention.ref import visible
     from repro_torch.kernels.moe_gemm import moe_expert_ffn_ref
     from repro_torch.kernels.moe_gemm import ops as k3_ops
     from repro_torch.models import registry, stack
     from repro_torch.serving.engine import ModelReplica, ServeRequest
 
-    kernels = {"decode_attention": k1_ops, "moe_gemm": k3_ops}
-    plain = {"decode_attention": decode_attention_ref, "moe_gemm": moe_expert_ffn_ref}
+    kernels = {"decode_attention": k1_ops, "flash_attention": k2_ops, "moe_gemm": k3_ops}
+    plain = {"decode_attention": decode_attention_ref, "flash_attention": flash_attention_ref,
+             "moe_gemm": moe_expert_ffn_ref}
     paths: dict[str, dict] = {}                # launches per kernel on each driven path
     t_run = time.monotonic()
 
@@ -587,6 +917,8 @@ def main() -> int:
     timed("build", build_phase, kernels)
     k1 = timed("kernel", kernel_phase, k1_ops, decode_attention_ref)
     k3 = timed("kernel.moe_gemm", moe_gemm_phase, k3_ops, moe_expert_ffn_ref)
+    k2 = timed("kernel.flash_attention", flash_attention_phase, k2_ops, flash_attention_ref,
+               visible)
 
     gemma = bf16("gemma3-4b")
     paths["model.gemma3-4b"] = timed("model.gemma3-4b", model_phase, gemma, 3_879_925_248,
@@ -595,6 +927,10 @@ def main() -> int:
     paths["serve.gemma3-4b"] = timed(
         "serve.gemma3-4b", serve_phase, gemma, *serve_args, n_requests=8,
         prompt_lens=(64, 256), max_new_tokens=16, max_replicas=4)
+    prefill_args = (kernels, plain, registry, stack)
+    paths.update(timed("prefill.gemma3-4b", prefill_phase, gemma, 3_879_925_248,
+                       *prefill_args, batch=PREFILL_B, seq=PREFILL_S_GEMMA,
+                       decode_steps=DECODE_AFTER, hold_logits=True))
 
     moe = bf16("deepseek-moe-16b")
     paths["model.deepseek-moe-16b"] = timed(
@@ -608,6 +944,13 @@ def main() -> int:
     paths["serve.deepseek-moe-16b"] = timed(
         "serve.deepseek-moe-16b", serve_phase, moe, *serve_args, n_requests=6,
         prompt_lens=(32, 128), max_new_tokens=8, max_replicas=2)
+    # B 2 x S 2048 = 4096 tokens: one dispatch group, C = 480
+    paths.update(timed("prefill.deepseek-moe-16b", prefill_phase, moe, 16_377_694_208,
+                       *prefill_args, batch=PREFILL_B, seq=PREFILL_S_MOE, decode_steps=0,
+                       hold_logits=False))
+    paths.update(timed("prefill.deepseek-v2-lite-16b", prefill_phase, mla, 15_708_450_304,
+                       *prefill_args, batch=PREFILL_B, seq=PREFILL_S_MOE, decode_steps=0,
+                       hold_logits=False))
 
     def per_path(name):
         return {p: n[name] for p, n in paths.items()}
@@ -615,6 +958,9 @@ def main() -> int:
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention/kernel.py:69", row=k1),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:95", row=k2),
         dict(name="moe_gemm", route="cuda",
              source="src/repro_torch/kernels/moe_gemm/csrc/moe_gemm.cu",
              replaces="src/repro/kernels/moe_gemm/kernel.py:49", row=k3)]
@@ -622,10 +968,13 @@ def main() -> int:
     for r in rows:
         row = r.pop("row")
         launches = per_path(r["name"])
+        # the timed shape's numbers; a second shape's (K2's local layer, K3's
+        # prefill call) ride along under their own key
+        extra = {k: v for k, v in row.items() if isinstance(v, dict)}
         out.append(dict(r, launches=sum(launches.values()), launches_per_path=launches,
                         max_abs_err=row["max_abs_err"], ms=row["ms"],
                         plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-                        bound_by=row["bound_by"], library_ms=row["library_ms"]))
+                        bound_by=row["bound_by"], library_ms=row["library_ms"], **extra))
     for r in out:
         if r["launches"] == 0:
             raise AssertionError(f"{r['name']} was never launched on the main paths")

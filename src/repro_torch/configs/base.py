@@ -8,7 +8,7 @@ Family selects the model implementation in ``repro_torch.models``:
   hybrid  - Hymba (parallel attention + SSM heads)
   encdec  - Whisper (encoder-decoder, stub audio frontend)
   vlm     - InternVL2 (stub vision frontend + decoder LM)
-``dense`` and ``moe`` are implemented so far; the registry raises for the others.
+``dense``, ``vlm`` and ``moe`` are implemented so far; the registry raises for the others.
 """
 
 from __future__ import annotations
@@ -79,9 +79,9 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"
     attn_scores_dtype: str = "float32"
     remat: str = "full"              # none | full | dots (training; unused by decode)
-    # ref: plain torch; kernel: the hand-written CUDA kernels (decode
-    # attention on full-cache layers, the moe expert FFN), which run their
-    # plain versions on CPU tensors
+    # ref: plain torch; kernel: the hand-written CUDA kernels (flash
+    # attention on the full-sequence path, decode attention on full-cache
+    # layers, the moe expert FFN), which run their plain versions on CPU tensors
     attn_impl: str = "ref"
     scan_layers: bool = True
     norm_eps: float = 1e-6

@@ -1,8 +1,10 @@
-"""GQA attention block: init and one-token decode against full or ring KV.
+"""GQA attention block: init, full-sequence apply/prefill, one-token decode.
 
 Counterpart of ``repro.models.attention`` (``init``, ``_project_qkv``,
-``cache_shape``, ``decode``); prefill/training ``apply`` comes with the
-flash-attention slice.
+``_attn_core``, ``apply``, ``cache_shape``, ``prefill``, ``decode``).  With
+``attn_impl="kernel"`` the full-sequence attention runs the flash-attention
+kernel and decode on full-cache layers the decode-attention kernel; both run
+their plain versions on CPU tensors.
 
 Cache layouts
 -------------
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers
 from repro_torch.models.layers import NEG_INF
 
@@ -58,6 +61,57 @@ def _project_qkv(cfg: ModelConfig, p, x, positions):
     return q, k, v
 
 
+def _attn_core(cfg: ModelConfig, q, k, v, *, causal: bool, window, q_offset: int = 0):
+    """The flash-attention kernel (``attn_impl="kernel"``; it takes any S and
+    T, so there is no block-size search) or the plain ``layers.attention``."""
+    if cfg.attn_impl == "kernel":
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=cfg.attn_logit_softcap, q_offset=q_offset)
+    return layers.attention(q, k, v, causal=causal, window=window,
+                            logit_softcap=cfg.attn_logit_softcap,
+                            q_block=min(512, q.shape[1]), q_offset=q_offset,
+                            score_dtype=getattr(torch, cfg.attn_scores_dtype))
+
+
+def _out_proj(cfg: ModelConfig, p, out):
+    wo = p["wo"].to(cfg.cdtype)
+    return out.flatten(-2) @ wo.reshape(-1, wo.shape[-1])            # "bshk,hkd->bsd"
+
+
+def apply(cfg: ModelConfig, p, x, *, window: Optional[int], positions=None,
+          causal: bool = True) -> torch.Tensor:
+    """Training / forward path. x: (B, S, d)."""
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    return _out_proj(cfg, p, _attn_core(cfg, q, k, v, causal=causal, window=window))
+
+
+def prefill(cfg: ModelConfig, p, cache: dict, x, *, window: Optional[int]):
+    """Full-sequence forward from position 0 that also fills the KV cache.
+
+    x: (B, S, d).  The full cache gets k/v at [0, min(S, T)); a ring cache
+    (T = W slots) gets the last min(W, S) tokens at slot position % W.  The
+    cache is written in place (the JAX package returns new arrays) and the
+    same dict is returned.
+    """
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)[None, :]
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    out = _attn_core(cfg, q, k, v, causal=True, window=window)
+    t = cache["k"].shape[1]
+    if window is None:
+        n = min(s, t)
+        cache["k"][:, :n] = k[:, :n]
+        cache["v"][:, :n] = v[:, :n]
+    else:
+        w = min(t, s)
+        slots = torch.arange(s - w, s, device=x.device) % t
+        cache["k"][:, slots] = k[:, s - w:]
+        cache["v"][:, slots] = v[:, s - w:]
+    return _out_proj(cfg, p, out), cache
+
+
 def cache_shape(cfg: ModelConfig, batch: int, seq_len: int,
                 window: Optional[int]) -> tuple[int, ...]:
     t = seq_len if window is None else min(window, seq_len)
@@ -94,6 +148,4 @@ def decode(cfg: ModelConfig, p, cache: dict, x, pos, *, window: Optional[int]):
         scores = scores.masked_fill(~mask[:, None, None, None, :], NEG_INF)
         probs = torch.softmax(scores, dim=-1)
         out = layers._gqa_out(probs, v).to(cfg.cdtype)               # (B,1,H,D)
-    wo = p["wo"].to(cfg.cdtype)
-    out = out.flatten(-2) @ wo.reshape(-1, wo.shape[-1])             # "bshk,hkd->bsd"
-    return out, cache
+    return _out_proj(cfg, p, out), cache

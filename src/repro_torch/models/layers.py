@@ -1,9 +1,10 @@
-"""Shared model building blocks for decode (plain torch, dicts of tensors).
+"""Shared model building blocks (plain torch, dicts of tensors).
 
-Counterpart of ``repro.models.layers``, restricted to what one-token decode
-needs; the prefill/training ``attention()`` and the losses come with later
-slices.  Parameter layouts are the JAX package's (e.g. ``wq`` is
-``(d_model, H, D)``), so weights carry across unchanged.
+Counterpart of ``repro.models.layers``: init helpers, norms, RoPE, the
+memory-bounded reference ``attention()`` of the prefill/forward path and the
+decode pieces, and the SwiGLU MLP; the losses come with the training slice.
+Parameter layouts are the JAX package's (e.g. ``wq`` is ``(d_model, H, D)``),
+so weights carry across unchanged.
 """
 
 from __future__ import annotations
@@ -82,27 +83,77 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 # ---------------------------------------------------------------------------
-# attention pieces (plain path; the decode kernel lives in repro_torch.kernels)
+# attention (plain path; the CUDA kernels in repro_torch.kernels implement the
+# same contract)
 # ---------------------------------------------------------------------------
 
 
-def _gqa_scores(q, k, softcap_val):
-    # q: (B, qb, H, D) ; k: (B, T, K, D) ; H = K*G.  Scores in float32, as the
-    # JAX einsum's preferred_element_type.
+def _gqa_scores(q, k, softcap_val, score_dtype=torch.float32):
+    # q: (B, qb, H, D) ; k: (B, T, K, D) ; H = K*G.  Products in float32, as
+    # the JAX einsum's preferred_element_type, held in score_dtype.
     b, s, h, d = q.shape
     kheads = k.shape[2]
     g = h // kheads
     q = q.reshape(b, s, kheads, g, d)
-    scores = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float())
+    scores = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float()).to(score_dtype)
     scores = scores / math.sqrt(d)
     return softcap(scores, softcap_val)  # (B, K, G, qb, T)
 
 
 def _gqa_out(probs, v):
     # probs: (B, K, G, qb, T), v: (B, T, K, D) -> (B, qb, H, D) float32
-    out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
+    out = torch.einsum("bkgst,btkd->bskgd", probs.float(), v.float())
     b, s, kh, g, d = out.shape
     return out.reshape(b, s, kh * g, d)
+
+
+def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+              logit_softcap: Optional[float] = None, q_block: int = 512,
+              q_offset: int = 0, score_dtype=torch.float32) -> torch.Tensor:
+    """Memory-bounded multi-head attention with GQA.
+
+    q: (B, S, H, D); k, v: (B, T, K, D).  Returns (B, S, H, Dv) in q.dtype;
+    Dv (v's last dim) may differ from D (MLA: qk 192, v 128).  ``q_offset``
+    is the absolute position of q[0].  Loops over query blocks of the largest
+    divisor of S that is <= q_block; windowed layers slice the key range to
+    ``min(T, qb + window)`` keys, so compute is O(S * window), not O(S * T).
+    A query row with no visible key gets the mean of v, as in the JAX package.
+    """
+    b, s, h, d = q.shape
+    t = k.shape[1]
+    dv = v.shape[-1]
+    out_dtype = q.dtype
+
+    if s == 1:
+        # decode fast path: single query token, full-row softmax
+        scores = _gqa_scores(q, k, logit_softcap, score_dtype)        # (B,K,G,1,T)
+        key_idx = torch.arange(t, device=q.device)
+        mask = (key_idx <= q_offset) if causal else torch.ones(t, dtype=torch.bool,
+                                                               device=q.device)
+        if window is not None:
+            mask = mask & (key_idx > q_offset - window)
+        scores = scores.masked_fill(~mask, NEG_INF)
+        return _gqa_out(torch.softmax(scores, dim=-1), v).to(out_dtype)
+
+    qb = min(q_block, s)
+    while s % qb:        # largest divisor of s <= q_block
+        qb -= 1
+    key_span = t if window is None else min(t, qb + int(window))
+    out = torch.empty((b, s, h, dv), dtype=out_dtype, device=q.device)
+    for qi in range(0, s, qb):
+        qpos = q_offset + qi + torch.arange(qb, device=q.device)
+        kstart = 0 if window is None else min(max(qi + q_offset - window + 1, 0), t - key_span)
+        kpos = kstart + torch.arange(key_span, device=q.device)
+        scores = _gqa_scores(q[:, qi:qi + qb], k[:, kstart:kstart + key_span],
+                             logit_softcap, score_dtype)               # (B,K,G,qb,span)
+        mask = torch.ones((qb, key_span), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if window is not None:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        probs = torch.softmax(scores.masked_fill(~mask, NEG_INF), dim=-1)
+        out[:, qi:qi + qb] = _gqa_out(probs, v[:, kstart:kstart + key_span]).to(out_dtype)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,14 @@
-"""Multi-head Latent Attention (DeepSeek-V2): init and absorbed one-token decode.
+"""Multi-head Latent Attention (DeepSeek-V2): init, expanded-KV apply/prefill,
+absorbed one-token decode.
 
 Counterpart of ``repro.models.mla`` (``_dims``, ``init``, ``_latent``,
-``_queries``, ``cache_shape``, ``decode``); the expanded-KV ``apply``/
-``prefill`` come with the prefill slice.  The cache holds only the
-normalised latent ``ckv`` (B, T, r) and the roped shared key ``krope``
-(B, T, dr) per token, with no head axis; ``decode`` writes the new token into
-it in place.  No kernel is involved: the scores are plain products.
+``_queries``, ``apply``, ``prefill``, ``cache_shape``, ``decode``).  The
+full-sequence path expands the latent into per-head K (qk 192 = nope 128 +
+rope 64) and V (128) and runs the plain ``layers.attention`` (dv != d), as
+the JAX package does: no kernel.  The cache holds only the normalised latent
+``ckv`` (B, T, r) and the roped shared key ``krope`` (B, T, dr) per token,
+with no head axis; ``prefill`` and ``decode`` write it in place.  No kernel
+is involved: the scores are plain products.
 """
 
 from __future__ import annotations
@@ -55,6 +58,42 @@ def _queries(cfg: ModelConfig, p, x, positions):
     return q_nope, q_rope
 
 
+def _expanded_attention(cfg: ModelConfig, p, x, positions, ckv, k_rope):
+    """Attention over the expanded latent: per-head K = [ckv W_uk, k_rope],
+    V = ckv W_uv, through the plain ``layers.attention``."""
+    h, r, dn, dr, dv = _dims(cfg)
+    cd = cfg.cdtype
+    b, s, _ = x.shape
+    q_nope, q_rope = _queries(cfg, p, x, positions)
+    k_nope = torch.einsum("bsr,rhk->bshk", ckv, p["wuk"].to(cd))
+    v = torch.einsum("bsr,rhk->bshk", ckv, p["wuv"].to(cd))
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], dim=-1)
+    out = layers.attention(q, k, v, causal=True, window=None, q_block=min(512, s))
+    return attention._out_proj(cfg, p, out)
+
+
+def apply(cfg: ModelConfig, p, x, *, positions=None) -> torch.Tensor:
+    """Training / forward path (expanded KV). x: (B,S,d)."""
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    ckv, k_rope = _latent(cfg, p, x, positions)
+    return _expanded_attention(cfg, p, x, positions, ckv, k_rope)
+
+
+def prefill(cfg: ModelConfig, p, cache: dict, x):
+    """Full-sequence forward from position 0 that also fills the latent cache
+    at [0, min(S, T)), in place; returns (out, the same cache dict)."""
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)[None, :]
+    ckv, k_rope = _latent(cfg, p, x, positions)
+    out = _expanded_attention(cfg, p, x, positions, ckv, k_rope)
+    n = min(s, cache["ckv"].shape[1])
+    cache["ckv"][:, :n] = ckv[:, :n]
+    cache["krope"][:, :n] = k_rope[:, :n, 0]
+    return out, cache
+
+
 def cache_shape(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
     _, r, _, dr, _ = _dims(cfg)
     return {"ckv": (batch, seq_len, r), "krope": (batch, seq_len, dr)}
@@ -89,6 +128,4 @@ def decode(cfg: ModelConfig, p, cache: dict, x, pos):
     probs = torch.softmax(scores, dim=-1)
     ctx = torch.einsum("bhst,btr->bshr", probs, ckv.float())
     out = torch.einsum("bshr,rhk->bshk", ctx.to(cd), p["wuv"].to(cd))
-    wo = p["wo"].to(cd)
-    out = out.flatten(-2) @ wo.reshape(-1, wo.shape[-1])              # "bshk,hkd->bsd"
-    return out, cache
+    return attention._out_proj(cfg, p, out), cache

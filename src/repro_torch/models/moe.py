@@ -1,6 +1,7 @@
-"""Mixture-of-Experts family (DeepSeekMoE / DeepSeek-V2-Lite): init, cache, one-token decode.
+"""Mixture-of-Experts family (DeepSeekMoE / DeepSeek-V2-Lite): init, forward,
+prefill, cache, one-token decode.
 
-Counterpart of ``repro.models.moe`` for the serving path.  The FFN is
+Counterpart of ``repro.models.moe``.  The FFN is
 ``num_shared_experts`` dense shared experts plus ``num_experts`` routed
 experts with top-k gating, routed one of two ways (``cfg.moe_impl``):
 
@@ -10,7 +11,8 @@ experts with top-k gating, routed one of two ways (``cfg.moe_impl``):
 
 Both run the experts through ``_expert_ffn``, which with
 ``attn_impl="kernel"`` calls the grouped expert-FFN kernel once per dispatch
-group (one group at decode).  Attention is MHA (``models.attention``) or MLA
+group (one group at decode, and up to ``MOE_GROUP`` tokens in a forward or
+prefill).  Attention is MHA (``models.attention``) or MLA
 (``models.mla``) when ``cfg.use_mla``.  Params and cache are flat per-layer
 lists as in ``models.transformer``; ``stack.layer_kinds`` makes the first
 ``first_dense_layers`` layers dense and the rest moe.  Capacities and group
@@ -169,6 +171,36 @@ def layer_init(cfg: ModelConfig, gen, device, kind: str) -> dict:
     return p
 
 
+def _ffn(cfg: ModelConfig, p, h, kind):
+    """-> (out, aux scalar); a dense layer has aux 0."""
+    if kind == "moe":
+        return moe_ffn(cfg, p["moe"], h)
+    return (layers.swiglu_apply(p["mlp"], h, cfg.cdtype),
+            torch.zeros((), dtype=torch.float32, device=h.device))
+
+
+def layer_apply(cfg: ModelConfig, p, x, *, window, kind):
+    """-> (x, aux scalar)."""
+    h = layers.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    if cfg.use_mla:
+        x = x + mla.apply(cfg, p["attn"], h)
+    else:
+        x = x + attention.apply(cfg, p["attn"], h, window=window)
+    f, aux = _ffn(cfg, p, layers.rmsnorm(x, p["ln2"], cfg.norm_eps), kind)
+    return x + f, aux
+
+
+def layer_prefill(cfg: ModelConfig, p, cache, x, *, window, kind):
+    h = layers.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    if cfg.use_mla:
+        a, cache = mla.prefill(cfg, p["attn"], cache, h)
+    else:
+        a, cache = attention.prefill(cfg, p["attn"], cache, h, window=window)
+    x = x + a
+    f, _ = _ffn(cfg, p, layers.rmsnorm(x, p["ln2"], cfg.norm_eps), kind)
+    return x + f, cache
+
+
 def layer_decode(cfg: ModelConfig, p, cache, x, pos, *, window, kind):
     h = layers.rmsnorm(x, p["ln1"], cfg.norm_eps)
     if cfg.use_mla:
@@ -176,11 +208,7 @@ def layer_decode(cfg: ModelConfig, p, cache, x, pos, *, window, kind):
     else:
         a, cache = attention.decode(cfg, p["attn"], cache, h, pos, window=window)
     x = x + a
-    h = layers.rmsnorm(x, p["ln2"], cfg.norm_eps)
-    if kind == "moe":
-        f, _ = moe_ffn(cfg, p["moe"], h)
-    else:
-        f = layers.swiglu_apply(p["mlp"], h, cfg.cdtype)
+    f, _ = _ffn(cfg, p, layers.rmsnorm(x, p["ln2"], cfg.norm_eps), kind)
     return x + f, cache
 
 
@@ -195,6 +223,30 @@ def init_params(cfg: ModelConfig, *, device: torch.device, seed: int = 0) -> dic
     return {"head": head.init(cfg, gen, device),
             "layers": [layer_init(cfg, gen, device, kind)
                        for _, kind in stack.layer_sigs(cfg)]}
+
+
+def _hidden(cfg: ModelConfig, params, batch):
+    """-> (hidden, the layers' aux terms summed, as ``stack.apply_runs_aux``)."""
+    x = head.embed(cfg, params["head"], batch["tokens"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for (window, kind), p in zip(stack.layer_sigs(cfg), params["layers"]):
+        x, a = layer_apply(cfg, p, x, window=window, kind=kind)
+        aux = aux + a
+    return x, aux
+
+
+def forward(cfg: ModelConfig, params, batch):
+    """batch: {"tokens": (B, S)} -> (logits, {"moe_aux": aux})."""
+    x, aux = _hidden(cfg, params, batch)
+    return head.logits(cfg, params["head"], x), {"moe_aux": aux}
+
+
+def prefill(cfg: ModelConfig, params, cache, batch):
+    """Batched prefill from position 0: forward + cache fill (in place)."""
+    x = head.embed(cfg, params["head"], batch["tokens"])
+    for (window, kind), p, c in zip(stack.layer_sigs(cfg), params["layers"], cache):
+        x, _ = layer_prefill(cfg, p, c, x, window=window, kind=kind)
+    return head.logits(cfg, params["head"], x), cache
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, seq_len: int) -> list[dict]:

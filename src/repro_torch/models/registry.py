@@ -2,10 +2,13 @@
 
 Every family module implements:
   init_params(cfg, device=, seed=)
+  forward(cfg, params, batch) -> (logits, aux)
   init_cache(cfg, batch, seq_len, device=)
+  prefill(cfg, params, cache, batch) -> (logits, cache)
   decode_step(cfg, params, cache, tokens, pos) -> (logits, cache)
-``dense`` and ``moe`` (with MHA or MLA attention) are ported; the other
-families raise and name the ROADMAP slice that brings them.
+``dense`` and ``vlm`` (``models.transformer``) and ``moe`` (with MHA or MLA
+attention) are ported; the other families raise and name the ROADMAP slice
+that brings them.  ``loss_fn`` and training come with the training slice.
 """
 
 from __future__ import annotations
@@ -17,7 +20,6 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 _LATER = {
-    "vlm": "slice 3 (prefill/forward with the flash-attention kernel K2)",
     "ssm": "slice 4 (the ssm family with the rwkv6_scan kernel K4)",
     "hybrid": "ROADMAP Queue 1 item 9 (hymba), after slice 4",
     "encdec": "ROADMAP Queue 1 item 9 (whisper), after slice 4",
@@ -25,7 +27,7 @@ _LATER = {
 
 
 def family_module(cfg: ModelConfig):
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         from repro_torch.models import transformer
         return transformer
     if cfg.family == "moe":
@@ -39,6 +41,15 @@ def family_module(cfg: ModelConfig):
 
 def init_params(cfg: ModelConfig, *, device, seed: int = 0):
     return family_module(cfg).init_params(cfg, device=device, seed=seed)
+
+
+def forward(cfg: ModelConfig, params, batch):
+    return family_module(cfg).forward(cfg, params, batch)
+
+
+def prefill(cfg: ModelConfig, params, cache, batch):
+    """Batched prefill from position 0: (logits, cache filled in place)."""
+    return family_module(cfg).prefill(cfg, params, cache, batch)
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, device):

@@ -1,0 +1,116 @@
+"""The flash-attention CUDA kernel held to its plain torch version.
+
+Imports no jax, so it runs on a machine with a card and no JAX:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_flash_attention_cuda.py
+
+The card tests carry the ``cuda`` marker and skip where there is no card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention_ref, ops
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# the 5 cases of tests/test_kernels.py::test_flash_attention_sweep:
+# (B, S, T, H, K, D, causal, window, softcap)
+SWEEP = [
+    (2, 128, 128, 4, 2, 64, True, None, None),     # GQA causal
+    (1, 256, 256, 8, 8, 64, True, 64, None),       # MHA sliding window
+    (2, 128, 128, 4, 4, 128, True, None, 50.0),    # softcap (gemma2)
+    (1, 128, 128, 2, 1, 64, False, None, None),    # MQA bidirectional
+    (1, 192, 192, 4, 2, 64, True, 32, 30.0),       # window + softcap, odd seq
+]
+# the model paths' shapes and the edges: (B, S, T, H, K, D, causal, window, softcap, q_offset)
+SHAPES = [
+    (2, 4096, 4096, 8, 4, 256, True, None, None, 0),     # gemma3-4b global layer
+    (2, 4096, 4096, 8, 4, 256, True, 1024, None, 0),     # gemma3-4b local layer
+    (2, 2048, 2048, 16, 16, 128, True, None, None, 0),   # deepseek-moe-16b
+    (1, 1000, 1000, 8, 4, 256, True, 100, None, 0),      # odd S, window < S
+    (2, 97, 97, 4, 2, 128, True, None, 30.0, 0),         # S no power of two divides
+    (1, 256, 256, 16, 2, 128, True, None, None, 0),      # G = 8
+    (2, 64, 200, 4, 2, 64, True, None, None, 136),       # q_offset: a chunk after 136 keys
+    (1, 100, 300, 4, 4, 128, True, 50, 50.0, 150),       # q_offset with window and softcap
+    (1, 70, 130, 4, 2, 64, False, None, None, 0),        # bidirectional, T > S, tails
+    (2, 48, 48, 4, 2, 16, True, 16, None, 0),            # smoke gemma3-4b local layer
+    (1, 40, 40, 4, 4, 32, False, None, 20.0, 0),         # D = 32
+]
+
+
+def _tol(dtype):
+    # the _tol of tests/test_kernels.py
+    return 2e-2 if dtype == "bfloat16" else 2e-5
+
+
+def _inputs(B, S, T, H, K, D, dtype, device, seed=0):
+    r = np.random.default_rng(seed)
+    return (torch.from_numpy(r.standard_normal(s).astype(np.float32))
+            .to(device=device, dtype=DTYPES[dtype])
+            for s in ((B, S, H, D), (B, T, K, D), (B, T, K, D)))
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+
+
+def _check(q, k, v, dtype, **kw):
+    before = ops.launches
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.launches == before + 1
+    ref = flash_attention_ref(q, k, v, **kw)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               atol=_tol(dtype), rtol=_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,T,H,K,D,causal,window,softcap", SWEEP)
+def test_kernel_matches_plain_over_the_sweep(B, S, T, H, K, D, causal, window, softcap,
+                                             dtype):
+    _need_cuda()
+    q, k, v = _inputs(B, S, T, H, K, D, dtype, "cuda")
+    _check(q, k, v, dtype, causal=causal, window=window, softcap=softcap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,T,H,K,D,causal,window,softcap,q_offset", SHAPES)
+def test_kernel_matches_plain_at_model_shapes_and_edges(B, S, T, H, K, D, causal, window,
+                                                        softcap, q_offset, dtype):
+    _need_cuda()
+    q, k, v = _inputs(B, S, T, H, K, D, dtype, "cuda", seed=1)
+    _check(q, k, v, dtype, causal=causal, window=window, softcap=softcap, q_offset=q_offset)
+
+
+@pytest.mark.cuda
+def test_kernel_reads_strided_kv_in_place():
+    """k/v as views of a wider buffer (strides, not a copy) give the same answer."""
+    _need_cuda()
+    q, k, v = _inputs(2, 256, 256, 8, 4, 128, "bfloat16", "cuda", seed=2)
+    wide = torch.zeros(2, 256, 6, 128, dtype=torch.bfloat16, device="cuda")
+    wide[:, :, 1:5] = k
+    out = ops.flash_attention(q, wide[:, :, 1:5], v)
+    ref = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_rows_with_no_visible_key_are_zero():
+    """Rows past T + window see no key: 0, as the Pallas kernel writes them."""
+    _need_cuda()
+    q, k, v = _inputs(1, 96, 32, 4, 2, 64, "float32", "cuda", seed=3)
+    out = ops.flash_attention(q, k, v, causal=True, window=16)
+    torch.cuda.synchronize()
+    # row i sees keys (i - 16, i] within [0, 32): none once i >= 47
+    assert torch.count_nonzero(out[:, 47:]).item() == 0
+    assert torch.count_nonzero(out[:, :47]).item() > 0
+    np.testing.assert_allclose(out.cpu().numpy(),
+                               flash_attention_ref(q, k, v, causal=True, window=16).cpu().numpy(),
+                               atol=2e-5, rtol=2e-5)

@@ -37,6 +37,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     mods = _modules()
     assert "repro_torch.kernels.decode_attention.ops" in mods
     assert "repro_torch.kernels.moe_gemm.ops" in mods
+    assert "repro_torch.kernels.flash_attention.ops" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -178,9 +178,13 @@ def test_param_count_matches_jax():
 
 
 def test_other_families_name_their_slice():
-    # the moe family is ported (tests/test_torch_moe.py)
+    # the moe and vlm families are ported (tests/test_torch_moe.py,
+    # tests/test_torch_prefill.py)
     assert registry.param_count(get_smoke_config("deepseek-moe-16b")) > 0
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        registry.param_count(get_smoke_config("internvl2-76b"))
+    assert registry.param_count(get_smoke_config("internvl2-76b")) > 0
     with pytest.raises(NotImplementedError, match="slice 4"):
         registry.init_params(get_smoke_config("rwkv6-3b"), device="meta")
+    with pytest.raises(NotImplementedError, match="hymba"):
+        registry.param_count(get_smoke_config("hymba-1.5b"))
+    with pytest.raises(NotImplementedError, match="whisper"):
+        registry.param_count(get_smoke_config("whisper-tiny"))
