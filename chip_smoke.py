@@ -26,8 +26,14 @@ card's name and power limit as nvidia-smi gives them on a line of its own):
                   odd S and a q_offset; at gemma3-4b's global and local prefill
                   shapes its time, the plain time, SDPA's time (and backend)
                   and the bound
+  kernel.rwkv6_scan
+                  the wkv scan (K4) against its plain version in f32 and bf16
+                  over the sweep of tests/test_kernels.py, the hard decay
+                  (logw = -8), a T no chunk divides, a non-zero input state
+                  and rwkv6-3b's prefill shape; there its time, the plain
+                  time and the bound (no single PyTorch call computes it)
   model           one full-width replica (bf16) per arch: gemma3-4b,
-                  deepseek-moe-16b, deepseek-v2-lite-16b (MLA): parameter
+                  deepseek-moe-16b, deepseek-v2-lite-16b (MLA), rwkv6-3b: parameter
                   count, bytes, cold start, decode-step time, kernel launches
                   per step, a profiled decode step (device busy time against
                   host wall time); one step checked: each kernel call in it
@@ -36,17 +42,24 @@ card's name and power limit as nvidia-smi gives them on a line of its own):
                   kernels' place and with attn_impl="ref" (held on the dense
                   arch; reported, with routing flips, on the moe archs)
   serve           ControlPlane + TorchWorkerBackend over full-width replicas
-                  of gemma3-4b, then of deepseek-moe-16b; each kernel's
-                  launch count must be its launches per step x the decode
-                  steps taken
+                  of gemma3-4b, then of deepseek-moe-16b, then of rwkv6-3b
+                  (more requests than slots: reused slots start from a
+                  zeroed recurrent state); each kernel's launch count must be
+                  its launches per step x the decode steps taken
   prefill         registry.prefill at full width (bf16): gemma3-4b at B 2,
                   S 4096, then deepseek-moe-16b and deepseek-v2-lite-16b at
-                  B 2, S 2048 (4096 tokens, one dispatch group): launches per
+                  B 2, S 2048 (4096 tokens, one dispatch group), then
+                  rwkv6-3b at B 2, S 4096 (32 K4 calls): launches per
                   prefill, every kernel call held to its plain version, wall
                   time, tokens/s, device busy time, peak memory, logits
                   against attn_impl="ref" (held on the dense arch); on
-                  gemma3-4b also 8 decode steps from the filled caches, held to
-                  registry.forward over the S + 8 tokens
+                  gemma3-4b and rwkv6-3b also 8 decode steps from the filled
+                  caches, held to registry.forward over the S + 8 tokens
+                  (4104: K4's tail masking).  rwkv6-3b's bf16 prefill
+                  logits are reported (tools/rwkv6_drift.py measures why
+                  they are no check at full depth); then the phase in
+                  float32 at full width and 8 layers holds its logits and
+                  decode steps within 1e-3
 Then one JSON line of per-kernel numbers, and last the result line
 ``{"ok": true, "device": {...}}``.  Any failure ends the run non-zero.
 """
@@ -98,6 +111,17 @@ K2_SHAPES = [
     (2, 64, 200, 4, 2, 64, True, None, None, 136),       # q_offset: a chunk after 136 keys
 ]
 K2_GLOBAL, K2_LOCAL = K2_SHAPES[5], K2_SHAPES[6]
+# K4: the 3 cases of tests/test_kernels.py::test_rwkv6_scan_sweep, T % 16 != 0 (a short
+# one and the forward over rwkv6-3b's prefill + 8 decode tokens), then the model shape:
+# rwkv6-3b's prefill call (B, T, H, D); K4_STATE run from a non-zero input state
+K4_SHAPES = [(2, 64, 4, 64), (1, 48, 2, 32), (2, 80, 3, 64), (2, 37, 3, 64), (2, 4104, 40, 64),
+             (2, 4096, 40, 64)]
+K4_MODEL = K4_SHAPES[-1]
+K4_STATE = [(2, 45, 40, 64), K4_MODEL]
+K4_HARD = (1, 64, 2, 32)              # tests/test_kernels.py::test_rwkv6_hard_decay_stability
+# tests/test_kernels.py's tolerances for the Pallas kernel, (atol, rtol); K4's output is
+# fp32 whatever its inputs, computed in fp32 by both versions from the same inputs
+K4_TOL, K4_HARD_TOL = (2e-4, 2e-3), (1e-4, 1e-3)
 PREFILL_B, PREFILL_S_GEMMA, PREFILL_S_MOE, DECODE_AFTER = 2, 4096, 2048, 8
 # relative bounds (max |diff| / max |logit|) of the dense arch's bf16 logits:
 # prefill with the kernels against attn_impl="ref", and decode after prefill
@@ -107,6 +131,16 @@ PREFILL_B, PREFILL_S_GEMMA, PREFILL_S_MOE, DECODE_AFTER = 2, 4096, 2048, 8
 # full width, 0.016-0.027 on the CPU for narrow 34-layer bf16 gemma3 models,
 # while decoding one position off gives 0.30 there.
 PREFILL_VS_REF_BOUND = DECODE_VS_FORWARD_BOUND = 5e-2
+# rwkv6-3b's random-weight model at full width makes its prefill logits no such check at
+# full depth: a 1e-6 relative perturbation of the wkv outputs grows layer by layer, so
+# two correct paths differ by as much as the kernel and ref paths do, in bf16 and in
+# float32 alike (tools/rwkv6_drift.py measures this noise floor over seeds, and where
+# it comes from).  Its prefill logits are held in float32 at full width with the depth
+# cut to RWKV_HELD_LAYERS, with its decode steps, where that script reads a floor far
+# below F32_LOGITS_BOUND and a path off by a token, a chunk or the state is O(1) off; at
+# full depth its decode steps are held as gemma3-4b's are.
+RWKV_HELD_LAYERS = 8
+F32_LOGITS_BOUND = 1e-3
 
 
 def phase(name: str, **fields) -> None:
@@ -440,28 +474,113 @@ def flash_attention_phase(ops, ref_fn, visible) -> dict:
     return dict(rows["global"], local_layer=rows["local"])
 
 
+def k4_inputs(shape, dtype, gen, hard=False):
+    """r, k, v in dtype, logw and u float32, scaled as in tests/test_kernels.py:
+    r, v ~ N(0, 1), k * 0.3, logw = -exp(N * 0.5 - 1) clipped to [1e-4, 8],
+    u * 0.2; hard: logw = -8 everywhere, k unscaled, u = 0."""
+    b, t, h, d = shape
+
+    def n(*dims):
+        return torch.randn(dims, generator=gen, device=DEVICE)
+    r, k, v = n(b, t, h, d), n(b, t, h, d) * (1.0 if hard else 0.3), n(b, t, h, d)
+    lw = (torch.full((b, t, h, d), -8.0, device=DEVICE) if hard
+          else -torch.exp(n(b, t, h, d) * 0.5 - 1.0).clamp(1e-4, 8.0))
+    u = torch.zeros((h, d), device=DEVICE) if hard else n(h, d) * 0.2
+    return r.to(dtype), k.to(dtype), v.to(dtype), lw, u
+
+
+def rwkv6_scan_work(shape, es: int, with_state: bool) -> tuple[int, int]:
+    """(bytes, flops) of one wkv-scan call: r, k, v (es bytes each), logw, u and,
+    with_state, s0 read once, y and S written once; per (16-token chunk, head)
+    the scores and intra products (4 C^2 D) and the cross and state products
+    (4 C D^2)."""
+    b, t, h, d = shape
+    c = 16
+    n = b * t * h * d
+    state = 4 * b * h * d * d
+    nbytes = 3 * n * es + 4 * n + 4 * h * d + (state if with_state else 0) + state + 4 * n
+    return nbytes, -(-t // c) * b * h * (4 * c * c * d + 4 * c * d * d)
+
+
+def rwkv6_scan_phase(ops, ref_fn) -> dict:
+    """rwkv6_scan against its plain version over K4_SHAPES in f32 and bf16, from
+    a non-zero state at K4_STATE, and at the hard decay; timed at rwkv6-3b's
+    prefill call as layer_prefill makes it (bf16 r, k, v; the cache's zeroed
+    state as s0)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    cases = [(shape, dtype, False, False) for shape in K4_SHAPES
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(shape, torch.bfloat16, True, False) for shape in K4_STATE]
+    cases += [(K4_HARD, dtype, False, True) for dtype in (torch.float32, torch.bfloat16)]
+    worst = 0.0
+    for shape, dtype, with_state, hard in cases:
+        r, k, v, lw, u = k4_inputs(shape, dtype, gen, hard=hard)
+        b, _, h, d = shape
+        s0 = torch.randn((b, h, d, d), generator=gen, device=DEVICE) if with_state else None
+        y, s = ops.rwkv6_scan(r, k, v, lw, u, s0)
+        torch.cuda.synchronize()
+        ey, es = ref_fn(r, k, v, lw, u, s0)
+        if not (torch.isfinite(y).all() and torch.isfinite(s).all()):
+            raise AssertionError(f"non-finite kernel output {shape} {dtype} hard={hard}")
+        atol, rtol = K4_HARD_TOL if hard else K4_TOL
+        err = max((y - ey).abs().max().item(), (s - es).abs().max().item())
+        torch.testing.assert_close(y, ey, atol=atol, rtol=rtol)
+        torch.testing.assert_close(s, es, atol=atol, rtol=rtol)
+        worst = max(worst, err)
+        phase("kernel.rwkv6_scan.check", shape=shape, dtype=str(dtype).split(".")[1],
+              input_state=with_state, hard_decay=hard, max_abs_err=f"{err:.3g}",
+              tol=(atol, rtol), max_abs_y=f"{ey.abs().max().item():.4g}")
+        del r, k, v, lw, u, s0, y, s, ey, es
+        free_cuda()
+
+    dtype = torch.bfloat16
+    r, k, v, lw, u = k4_inputs(K4_MODEL, dtype, gen)
+    b, _, h, d = K4_MODEL
+    s0 = torch.zeros((b, h, d, d), device=DEVICE)
+    nbytes, nops = rwkv6_scan_work(K4_MODEL, r.element_size(), with_state=True)
+    bound_ms, bound_by = bound(nbytes, nops, dtype)
+    row = dict(ms=time_ms(lambda: ops.rwkv6_scan(r, k, v, lw, u, s0), iters=20),
+               plain_ms=time_ms(lambda: ref_fn(r, k, v, lw, u, s0), iters=5),
+               library_ms=None, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst)
+    phase("kernel.rwkv6_scan.time", shape=K4_MODEL, dtype="bfloat16", bytes=nbytes, ops=nops,
+          kernel_us=f"{row['ms'] * 1e3:.3f}", plain_us=f"{row['plain_ms'] * 1e3:.3f}",
+          library="none (no single PyTorch call computes the wkv recurrence)",
+          bound_us=f"{row['bound_ms'] * 1e3:.4f}", bound_by=bound_by,
+          bound_share=f"{row['bound_ms'] / row['ms']:.4f}",
+          achieved_gb_per_s=f"{nbytes / row['ms'] / 1e6:.1f}",
+          fp32_fma_floor_us=f"{nops / PEAK_OPS[torch.float32] * 1e6:.3f}")
+    del r, k, v, lw, u, s0
+    free_cuda()
+    return row
+
+
 def per_step_launches(cfg, stack) -> dict:
     """Kernel launches one decode step makes: K1 on every full-cache MHA/GQA
-    layer (MLA makes none), K3 once on every moe layer (one dispatch group)."""
-    return {"decode_attention": (0 if cfg.use_mla else
-                                 sum(w is None for w in stack.layer_windows(cfg))),
+    layer (MLA and the ssm family make none), K3 once on every moe layer (one
+    dispatch group); rwkv6's one-token decode is plain torch."""
+    attn = cfg.family != "ssm" and not cfg.use_mla
+    return {"decode_attention": sum(w is None for w in stack.layer_windows(cfg)) if attn else 0,
             "flash_attention": 0,
-            "moe_gemm": sum(k == "moe" for k in stack.layer_kinds(cfg))}
+            "moe_gemm": sum(k == "moe" for k in stack.layer_kinds(cfg)),
+            "rwkv6_scan": 0}
 
 
 def per_prefill_launches(cfg, stack, moe, tokens: int) -> dict:
     """Kernel launches one prefill (or forward) of ``tokens`` tokens makes: K2
     on every MHA/GQA layer, local and global (MLA's is plain torch), K3 once
-    per dispatch group on every moe layer."""
+    per dispatch group on every moe layer, K4 once on every rwkv6 layer."""
     groups = tokens // min(moe.MOE_GROUP, tokens)
+    ssm = cfg.family == "ssm"
     return {"decode_attention": 0,
-            "flash_attention": 0 if cfg.use_mla else cfg.num_layers,
-            "moe_gemm": groups * sum(k == "moe" for k in stack.layer_kinds(cfg))}
+            "flash_attention": 0 if cfg.use_mla or ssm else cfg.num_layers,
+            "moe_gemm": groups * sum(k == "moe" for k in stack.layer_kinds(cfg)),
+            "rwkv6_scan": cfg.num_layers if ssm else 0}
 
 
 KERNEL_NAMES = {"decode_attention": ("decode_split_kernel", "decode_combine_kernel"),
                 "flash_attention": ("fa_fwd_",),
-                "moe_gemm": ("moe_up_kernel", "moe_down_kernel")}
+                "moe_gemm": ("moe_up_kernel", "moe_down_kernel"),
+                "rwkv6_scan": ("rwkv6_scan_kernel",)}
 
 
 def kernel_summary(kern, reps: int) -> dict:
@@ -501,17 +620,19 @@ def profile_steps(rep, name: str, steps: int = 10) -> None:
           top=repr(summ["top"]))
 
 
-def kernel_sites(attention, moe) -> list:
+def kernel_sites() -> list:
     """(module, attribute, kernel) of every kernel call the models make."""
+    from repro_torch.models import attention, moe, rwkv6
     return [(attention, "decode_attention", "decode_attention"),
             (attention, "flash_attention", "flash_attention"),
-            (moe, "moe_expert_ffn", "moe_gemm")]
+            (moe, "moe_expert_ffn", "moe_gemm"),
+            (rwkv6, "rwkv6_scan", "rwkv6_scan")]
 
 
 @contextlib.contextmanager
-def swapped_kernels(attention, moe, make):
+def swapped_kernels(make):
     """Each kernel call of the models replaced by make(kernel, wrapper)."""
-    sites = kernel_sites(attention, moe)
+    sites = kernel_sites()
     saved = [getattr(mod, attr) for mod, attr, _ in sites]
     for (mod, attr, name), fn in zip(sites, saved):
         setattr(mod, attr, make(name, fn))
@@ -522,21 +643,33 @@ def swapped_kernels(attention, moe, make):
             setattr(mod, attr, fn)
 
 
-def plain_kernels(attention, moe, plain: dict):
+def plain_kernels(plain: dict):
     """The model's kernel calls swapped for their plain torch versions: the
     same fp32 arithmetic on the same device, with no launch."""
-    return swapped_kernels(attention, moe, lambda name, fn: plain[name])
+    return swapped_kernels(lambda name, fn: plain[name])
 
 
-def recorded_calls(attention, moe, into: list):
-    """Record every kernel call the model makes: (kernel, args, kwargs, output)."""
+def recorded_calls(into: list):
+    """Record every kernel call the model makes: (kernel, args, kwargs, output).
+    K4's input state is the cache's, which the model overwrites in place after
+    the call, so it is recorded as a copy."""
     def recording(name, fn):
         def call(*args, **kw):
             out = fn(*args, **kw)
+            if name == "rwkv6_scan" and len(args) > 5 and args[5] is not None:
+                args = (*args[:5], args[5].clone(), *args[6:])
             into.append((name, args, kw, out))
             return out
         return call
-    return swapped_kernels(attention, moe, recording)
+    return swapped_kernels(recording)
+
+
+def call_tol(name: str, dtype) -> tuple[float, float]:
+    """(atol, rtol) of a kernel against its plain version: the kernel phases'."""
+    if name == "rwkv6_scan":
+        return K4_TOL
+    tol = TOL[dtype] * (4 if name == "moe_gemm" else 1)
+    return tol, tol
 
 
 def hold_calls(calls: list, plain: dict) -> dict:
@@ -545,10 +678,12 @@ def hold_calls(calls: list, plain: dict) -> dict:
     err: dict = {}
     for name, args, kw, out in calls:
         exp = plain[name](*args, **kw)
-        tol = TOL[out.dtype] * (4 if name == "moe_gemm" else 1)
-        torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
-        err[name] = max(err.get(name, 0.0), (out.float() - exp.float()).abs().max().item())
-        del exp
+        pairs = zip(out, exp) if isinstance(out, tuple) else [(out, exp)]
+        for o, e in pairs:
+            atol, rtol = call_tol(name, o.dtype)
+            torch.testing.assert_close(o.float(), e.float(), atol=atol, rtol=rtol)
+            err[name] = max(err.get(name, 0.0), (o.float() - e.float()).abs().max().item())
+        del exp, pairs
     return err
 
 
@@ -575,7 +710,7 @@ def model_phase(cfg, n_params: int, n_bytes: int, kernels: dict, plain: dict, re
     in it against its plain version on the inputs the model gave it, and its
     logits against the model with plain versions in the kernels' place and
     against ``attn_impl="ref"``.  Returns the launches of the timed steps."""
-    from repro_torch.models import attention, moe
+    from repro_torch.models import moe
     got = registry.param_count(cfg)
     if got != n_params:
         raise AssertionError(f"{cfg.name} has {got} parameters, expected {n_params}")
@@ -611,8 +746,8 @@ def model_phase(cfg, n_params: int, n_bytes: int, kernels: dict, plain: dict, re
     for label, impl in (("kernel", "kernel"), ("plain", "kernel"), ("ref", "ref")):
         cache = [{n: t.clone() for n, t in layer.items()} for layer in rep.cache]
         routes[label] = []
-        swap = (plain_kernels(attention, moe, plain) if label == "plain"
-                else recorded_calls(attention, moe, calls) if label == "kernel"
+        swap = (plain_kernels(plain) if label == "plain"
+                else recorded_calls(calls) if label == "kernel"
                 else contextlib.nullcontext())
         with swap, recorded_routes(moe, routes[label]):
             lg, _ = registry.decode_step(cfg.replace(attn_impl=impl), rep.params, cache,
@@ -666,7 +801,23 @@ def model_phase(cfg, n_params: int, n_bytes: int, kernels: dict, plain: dict, re
 def serve_phase(cfg, kernels: dict, stack, ControlPlane, TorchWorkerBackend, make_policy,
                 ServeRequest, *, n_requests: int, prompt_lens: tuple[int, int],
                 max_new_tokens: int, max_replicas: int) -> dict:
+    """Serve n_requests through ControlPlane; the launches of each kernel must
+    be its launches per step x the decode steps taken.  Counts slot reuses
+    (a request placed in a slot an earlier request used) and, on the ssm
+    family, requires some and checks that each leaves the slot's recurrent
+    state all zero before the request's first step."""
+    from repro_torch.models import registry
     torch.cuda.reset_peak_memory_stats()
+    placed: list = []
+    reset = registry.reset_slot
+
+    def checked_reset(cfg_, cache, slot):
+        reset(cfg_, cache, slot)
+        placed.append((id(cache), slot))
+        if cfg_.family == "ssm" and torch.stack(
+                [t[slot].abs().max().float() for layer in cache for t in layer.values()]
+        ).max().item() != 0:
+            raise AssertionError(f"slot {slot} holds a non-zero state after its reset")
     backend = TorchWorkerBackend(cfg, max_slots=MAX_SLOTS, max_seq=MAX_SEQ, device=DEVICE)
     cp = ControlPlane(backend, lambda f: make_policy("sync", keepalive_s=30.0,
                                                       container_concurrency=MAX_SLOTS),
@@ -681,27 +832,34 @@ def serve_phase(cfg, kernels: dict, stack, ControlPlane, TorchWorkerBackend, mak
     t0 = time.monotonic()
     i = 0
     mem_samples, busy_samples = [], []
-    while True:
-        now = time.monotonic() - t0
-        while i < n_requests and arrivals[i] <= now:
-            cp.submit(ServeRequest(rid=i, fn=int(fns[i]), prompt=prompts[i],
-                                   max_new_tokens=max_new_tokens, arrival_t=now), now)
-            i += 1
-        cp.tick(now)
-        snap = cp.snapshot()
-        mem_samples.append(snap["memory_bytes"])
-        busy_samples.append(max(snap["busy_memory_bytes"], 1))
-        if i >= n_requests and len(cp.completed) >= n_requests:
-            break
-        if now > 600:
-            raise AssertionError(f"served {len(cp.completed)}/{n_requests} in 600 s")
-        time.sleep(0.005)
+    registry.reset_slot = checked_reset
+    try:
+        while True:
+            now = time.monotonic() - t0
+            while i < n_requests and arrivals[i] <= now:
+                cp.submit(ServeRequest(rid=i, fn=int(fns[i]), prompt=prompts[i],
+                                       max_new_tokens=max_new_tokens, arrival_t=now), now)
+                i += 1
+            cp.tick(now)
+            snap = cp.snapshot()
+            mem_samples.append(snap["memory_bytes"])
+            busy_samples.append(max(snap["busy_memory_bytes"], 1))
+            if i >= n_requests and len(cp.completed) >= n_requests:
+                break
+            if now > 600:
+                raise AssertionError(f"served {len(cp.completed)}/{n_requests} in 600 s")
+            time.sleep(0.005)
+    finally:
+        registry.reset_slot = reset
     launches = {name: ops.launches for name, ops in kernels.items()}
     steps = backend.decode_steps
     wall = time.monotonic() - t0
+    reuses = len(placed) - len(set(placed))
 
     if sorted(r.rid for r in cp.completed) != list(range(n_requests)):
         raise AssertionError("not every request was served")
+    if cfg.family == "ssm" and not reuses:
+        raise AssertionError("no request was placed in a reused slot")
     for r in cp.completed:
         if len(r.output) != max_new_tokens or not all(0 <= x < cfg.vocab_size
                                                       for x in r.output):
@@ -714,7 +872,7 @@ def serve_phase(cfg, kernels: dict, stack, ControlPlane, TorchWorkerBackend, mak
     lat = [r.done_t - r.arrival_t for r in cp.completed]
     phase("serve", arch=cfg.name, requests=n_requests, served=len(cp.completed),
           wall_s=f"{wall:.3f}", decode_steps=steps, launches_per_step=per_step,
-          kernel_launches=launches,
+          kernel_launches=launches, slot_reuses=reuses,
           p50_s=f"{np.percentile(lat, 50):.4f}", p99_s=f"{np.percentile(lat, 99):.4f}",
           cold_fraction=f"{np.mean([r.cold for r in cp.completed]):.3f}",
           creations=backend.creations, teardowns=backend.teardowns,
@@ -739,6 +897,12 @@ def counted(kernels: dict, fn):
     return out, {name: ops.launches for name, ops in kernels.items()}
 
 
+def zero_cache(cache) -> None:
+    for layer in cache:
+        for t in layer.values():
+            t.zero_()
+
+
 def rel_max_err(a, b) -> float:
     """max |a - b| / max |b| over float32 copies, a slice of rows at a time
     (the bf16 logits of a prefill are GBs)."""
@@ -751,15 +915,19 @@ def rel_max_err(a, b) -> float:
 
 
 def prefill_phase(cfg, n_params: int, kernels: dict, plain: dict, registry, stack, *,
-                  batch: int, seq: int, decode_steps: int, hold_logits: bool) -> dict:
+                  batch: int, seq: int, decode_steps: int, hold_logits: bool,
+                  bound: float = PREFILL_VS_REF_BOUND, label: str = "") -> dict:
     """registry.prefill at full width from random weights: kernel launches per
     prefill, every kernel call held to its plain version on the model's own
     inputs, wall time and tokens/s, device busy time, peak memory, logits
-    against attn_impl="ref" (held on a dense arch, reported with routing flips
-    on a moe arch).  With decode_steps, that many decode steps continue from
-    the filled caches and are held to one registry.forward over all the
-    tokens.  Returns the launches of each path it drove."""
-    from repro_torch.models import attention, moe
+    against attn_impl="ref" (held within ``bound`` when hold_logits, else
+    reported, with routing flips on a moe arch).  With decode_steps, that many
+    decode steps continue from the filled caches and are held within
+    ``bound`` to one registry.forward over all the tokens.  Paths are named
+    after ``label`` (default the arch).  Returns the launches of each path it
+    drove."""
+    from repro_torch.models import moe
+    label = label or cfg.name
     params = registry.init_params(cfg, device=DEVICE, seed=0)
     got = sum(t.numel() for t in registry.leaves(params))
     if got != n_params:
@@ -776,15 +944,15 @@ def prefill_phase(cfg, n_params: int, kernels: dict, plain: dict, registry, stac
     calls, routes_k = [], []
 
     def main_path():
-        with recorded_calls(attention, moe, calls), recorded_routes(moe, routes_k):
+        with recorded_calls(calls), recorded_routes(moe, routes_k):
             out = registry.prefill(cfg, params, cache, prompt)
         torch.cuda.synchronize()
         return out
     t0 = time.monotonic()
-    (logits, _), paths[f"prefill.{cfg.name}"] = counted(kernels, main_path)
+    (logits, _), paths[f"prefill.{label}"] = counted(kernels, main_path)
     first_s = time.monotonic() - t0
-    if paths[f"prefill.{cfg.name}"] != expect:
-        raise AssertionError(f"a prefill of {cfg.name} launched {paths[f'prefill.{cfg.name}']}"
+    if paths[f"prefill.{label}"] != expect:
+        raise AssertionError(f"a prefill of {cfg.name} launched {paths[f'prefill.{label}']}"
                              f", expected {expect}")
     if logits.shape != (batch, seq, cfg.vocab_size) or not torch.isfinite(logits).all():
         raise AssertionError(f"prefill logits {tuple(logits.shape)} or not finite")
@@ -792,13 +960,16 @@ def prefill_phase(cfg, n_params: int, kernels: dict, plain: dict, registry, stac
     n_calls = {name: sum(c[0] == name for c in calls) for name in kernels}
     del calls
 
-    # timed and profiled prefills (the cache is refilled with the same values)
+    # timed and profiled prefills, each from a zeroed cache (an ssm prefill
+    # starts from the cache's state), which they fill with the same values
+    zero_cache(cache)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     registry.prefill(cfg, params, cache, prompt)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     peak = torch.cuda.max_memory_allocated()
+    zero_cache(cache)
     prof_wall, kern = device_kernels(lambda: registry.prefill(cfg, params, cache, prompt))
     summ = kernel_summary(kern, 1) if kern else None
 
@@ -810,19 +981,21 @@ def prefill_phase(cfg, n_params: int, kernels: dict, plain: dict, registry, stac
                                          prompt)
     rel_ref = rel_max_err(logits, ref_logits)
     flips = sum(int((a != b).any(-1).sum()) for a, b in zip(routes_k, routes_r))
-    del ref_logits, ref_cache, logits
+    del ref_cache, logits, ref_logits
     free_cuda()
-    if hold_logits and rel_ref > PREFILL_VS_REF_BOUND:
-        phase("prefill", arch=cfg.name, logits_rel_err_vs_ref=f"{rel_ref:.3g}",
+    if hold_logits and rel_ref > bound:
+        phase("prefill", arch=label, logits_rel_err_vs_ref=f"{rel_ref:.3g}",
               kernel_calls=n_calls, calls_max_abs_err_vs_plain=call_err)
-        raise AssertionError(f"{cfg.name} prefill logits differ from attn_impl=ref by "
-                             f"{rel_ref} (relative), bound {PREFILL_VS_REF_BOUND}")
-    fields = dict(arch=cfg.name, batch=batch, seq=seq, params=got,
-                  launches_per_prefill=paths[f"prefill.{cfg.name}"], kernel_calls=n_calls,
+        raise AssertionError(f"{label} prefill logits differ from attn_impl=ref by "
+                             f"{rel_ref} (relative), bound {bound}")
+    fields = dict(arch=label, batch=batch, seq=seq, params=got,
+                  launches_per_prefill=paths[f"prefill.{label}"], kernel_calls=n_calls,
                   calls_max_abs_err_vs_plain={k: f"{v:.3g}" for k, v in call_err.items()},
                   first_prefill_s=f"{first_s:.3f}", prefill_s=f"{wall:.4f}",
                   tokens_per_s=f"{batch * seq / wall:.1f}", peak_memory_allocated=peak,
-                  logits_rel_err_vs_ref=f"{rel_ref:.3g}", routing_flips_vs_ref=flips,
+                  logits_rel_err_vs_ref=f"{rel_ref:.3g}",
+                  logits_bound=bound if hold_logits else "reported, not held",
+                  routing_flips_vs_ref=flips,
                   moe_tokens_routed=sum(int(r.shape[0] * r.shape[1]) for r in routes_k))
     if summ is None:
         fields["device_busy"] = "not measured (the profiler saw no kernels)"
@@ -832,12 +1005,13 @@ def prefill_phase(cfg, n_params: int, kernels: dict, plain: dict, registry, stac
                       idle_share=f"{1 - busy / prof_wall:.4f}",
                       kernels_per_prefill=summ["kernels"],
                       flash_attention=summ["flash_attention"], moe_gemm=summ["moe_gemm"],
-                      top=repr(summ["top"]))
+                      rwkv6_scan=summ["rwkv6_scan"], top=repr(summ["top"]))
 
     if decode_steps:
         # decode from the filled caches (K1 reads the full caches K2's prefill
-        # wrote; the ring caches are read at S > W), then one forward over all
-        # the tokens, which the decode logits are held to
+        # wrote; the ring caches are read at S > W; rwkv6 continues from the
+        # state K4 left), then one forward over all the tokens, which the
+        # decode logits are held to
         def decode():
             out = []
             for i in range(decode_steps):
@@ -847,29 +1021,28 @@ def prefill_phase(cfg, n_params: int, kernels: dict, plain: dict, registry, stac
                 out.append(lg[:, 0])
             torch.cuda.synchronize()
             return torch.stack(out, 1)
-        dec, paths[f"decode_after_prefill.{cfg.name}"] = counted(kernels, decode)
+        dec, paths[f"decode_after_prefill.{label}"] = counted(kernels, decode)
         per_step = per_step_launches(cfg, stack)
         want = {k: n * decode_steps for k, n in per_step.items()}
-        if paths[f"decode_after_prefill.{cfg.name}"] != want:
+        if paths[f"decode_after_prefill.{label}"] != want:
             raise AssertionError(f"{decode_steps} decode steps after prefill launched "
-                                 f"{paths[f'decode_after_prefill.{cfg.name}']}, expected {want}")
-        (full, _), paths[f"forward.{cfg.name}"] = counted(
+                                 f"{paths[f'decode_after_prefill.{label}']}, expected {want}")
+        (full, _), paths[f"forward.{label}"] = counted(
             kernels, lambda: registry.forward(cfg, params, {"tokens": toks}))
         want = per_prefill_launches(cfg, stack, moe, batch * (seq + decode_steps))
-        if paths[f"forward.{cfg.name}"] != want:
+        if paths[f"forward.{label}"] != want:
             raise AssertionError(f"a forward of {cfg.name} launched "
-                                 f"{paths[f'forward.{cfg.name}']}, expected {want}")
+                                 f"{paths[f'forward.{label}']}, expected {want}")
         rel_dec = rel_max_err(dec, full[:, seq:])
         del full
         fields.update(decode_steps=decode_steps,
-                      decode_launches=paths[f"decode_after_prefill.{cfg.name}"],
-                      forward_launches=paths[f"forward.{cfg.name}"],
-                      decode_vs_forward_rel_err=f"{rel_dec:.3g}",
-                      decode_vs_forward_bound=DECODE_VS_FORWARD_BOUND)
-        if not torch.isfinite(dec).all() or rel_dec > DECODE_VS_FORWARD_BOUND:
+                      decode_launches=paths[f"decode_after_prefill.{label}"],
+                      forward_launches=paths[f"forward.{label}"],
+                      decode_vs_forward_rel_err=f"{rel_dec:.3g}")
+        if not torch.isfinite(dec).all() or rel_dec > bound:
             phase("prefill", **fields)
             raise AssertionError(f"decode after prefill differs from forward by {rel_dec} "
-                                 f"(relative), bound {DECODE_VS_FORWARD_BOUND}")
+                                 f"(relative), bound {bound}")
     phase("prefill", **fields)
     del params, cache
     free_cuda()
@@ -891,12 +1064,15 @@ def main() -> int:
     from repro_torch.kernels.flash_attention.ref import visible
     from repro_torch.kernels.moe_gemm import moe_expert_ffn_ref
     from repro_torch.kernels.moe_gemm import ops as k3_ops
+    from repro_torch.kernels.rwkv6_scan import ops as k4_ops
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_ref
     from repro_torch.models import registry, stack
     from repro_torch.serving.engine import ModelReplica, ServeRequest
 
-    kernels = {"decode_attention": k1_ops, "flash_attention": k2_ops, "moe_gemm": k3_ops}
+    kernels = {"decode_attention": k1_ops, "flash_attention": k2_ops, "moe_gemm": k3_ops,
+               "rwkv6_scan": k4_ops}
     plain = {"decode_attention": decode_attention_ref, "flash_attention": flash_attention_ref,
-             "moe_gemm": moe_expert_ffn_ref}
+             "moe_gemm": moe_expert_ffn_ref, "rwkv6_scan": rwkv6_scan_ref}
     paths: dict[str, dict] = {}                # launches per kernel on each driven path
     t_run = time.monotonic()
 
@@ -919,6 +1095,7 @@ def main() -> int:
     k3 = timed("kernel.moe_gemm", moe_gemm_phase, k3_ops, moe_expert_ffn_ref)
     k2 = timed("kernel.flash_attention", flash_attention_phase, k2_ops, flash_attention_ref,
                visible)
+    k4 = timed("kernel.rwkv6_scan", rwkv6_scan_phase, k4_ops, rwkv6_scan_ref)
 
     gemma = bf16("gemma3-4b")
     paths["model.gemma3-4b"] = timed("model.gemma3-4b", model_phase, gemma, 3_879_925_248,
@@ -952,6 +1129,28 @@ def main() -> int:
                        *prefill_args, batch=PREFILL_B, seq=PREFILL_S_MOE, decode_steps=0,
                        hold_logits=False))
 
+    rwkv = bf16("rwkv6-3b")
+    paths["model.rwkv6-3b"] = timed("model.rwkv6-3b", model_phase, rwkv, 3_099_691_520,
+                                    6_241_981_440, *model_args)
+    # 2 x 6.2 GB resident; 10 requests on at most 2 replicas of 2 slots: slots are reused
+    paths["serve.rwkv6-3b"] = timed(
+        "serve.rwkv6-3b", serve_phase, rwkv, *serve_args, n_requests=10,
+        prompt_lens=(32, 128), max_new_tokens=8, max_replicas=2)
+    # 32 K4 calls, then 8 decode steps from the state they leave, held to a forward over
+    # 4104 tokens (4104 % 16 = 8: K4's tail masking): in bf16, timed, every call held, the
+    # prefill logits reported; then in float32 at RWKV_HELD_LAYERS layers, the logits and
+    # decode steps held within F32_LOGITS_BOUND
+    paths.update(timed("prefill.rwkv6-3b", prefill_phase, rwkv, 3_099_691_520,
+                       *prefill_args, batch=PREFILL_B, seq=PREFILL_S_GEMMA,
+                       decode_steps=DECODE_AFTER, hold_logits=False))
+    held = rwkv.replace(param_dtype="float32", compute_dtype="float32",
+                        num_layers=RWKV_HELD_LAYERS)
+    label = f"rwkv6-3b.f32.{RWKV_HELD_LAYERS}L"
+    paths.update(timed(f"prefill.{label}", prefill_phase, held, registry.param_count(held),
+                       *prefill_args, batch=PREFILL_B, seq=PREFILL_S_GEMMA,
+                       decode_steps=DECODE_AFTER, hold_logits=True, bound=F32_LOGITS_BOUND,
+                       label=label))
+
     def per_path(name):
         return {p: n[name] for p, n in paths.items()}
     rows = [
@@ -963,7 +1162,10 @@ def main() -> int:
              replaces="src/repro/kernels/flash_attention/kernel.py:95", row=k2),
         dict(name="moe_gemm", route="cuda",
              source="src/repro_torch/kernels/moe_gemm/csrc/moe_gemm.cu",
-             replaces="src/repro/kernels/moe_gemm/kernel.py:49", row=k3)]
+             replaces="src/repro/kernels/moe_gemm/kernel.py:49", row=k3),
+        dict(name="rwkv6_scan", route="cuda",
+             source="src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
+             replaces="src/repro/kernels/rwkv6_scan/kernel.py:72", row=k4)]
     out = []
     for r in rows:
         row = r.pop("row")

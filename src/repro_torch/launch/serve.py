@@ -6,7 +6,8 @@
 Runs the REAL control plane (repro_torch.core.control_plane) over real torch
 model replicas (the arch's smoke config, bf16 params, the CUDA kernels:
 decode attention, and the expert FFN for ``--arch deepseek-moe-16b`` or
-``deepseek-v2-lite-16b``); prints the paper's metrics for the run.  The device is
+``deepseek-v2-lite-16b``; ``--arch rwkv6-3b`` serves the ssm family, whose
+one-token decode is plain torch); prints the paper's metrics for the run.  The device is
 CUDA unless ``--device`` names another (``--device cpu`` runs the plain
 torch path on the CPU).
 """

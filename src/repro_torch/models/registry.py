@@ -6,9 +6,11 @@ Every family module implements:
   init_cache(cfg, batch, seq_len, device=)
   prefill(cfg, params, cache, batch) -> (logits, cache)
   decode_step(cfg, params, cache, tokens, pos) -> (logits, cache)
-``dense`` and ``vlm`` (``models.transformer``) and ``moe`` (with MHA or MLA
-attention) are ported; the other families raise and name the ROADMAP slice
-that brings them.  ``loss_fn`` and training come with the training slice.
+``dense`` and ``vlm`` (``models.transformer``), ``moe`` (with MHA or MLA
+attention) and ``ssm`` (``models.rwkv6``) are ported; the other families
+raise and name the ROADMAP item that brings them.  ``loss_fn`` and training
+come with the training slice.  ``reset_slot`` zeroes one serving slot's
+recurrent state, for the families that keep one (ssm).
 """
 
 from __future__ import annotations
@@ -20,9 +22,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 _LATER = {
-    "ssm": "slice 4 (the ssm family with the rwkv6_scan kernel K4)",
-    "hybrid": "ROADMAP Queue 1 item 9 (hymba), after slice 4",
-    "encdec": "ROADMAP Queue 1 item 9 (whisper), after slice 4",
+    "hybrid": "ROADMAP Queue 1 item 9 (hymba)",
+    "encdec": "ROADMAP Queue 1 item 9 (whisper)",
 }
 
 
@@ -33,6 +34,9 @@ def family_module(cfg: ModelConfig):
     if cfg.family == "moe":
         from repro_torch.models import moe
         return moe
+    if cfg.family == "ssm":
+        from repro_torch.models import rwkv6
+        return rwkv6
     if cfg.family in _LATER:
         raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is not ported "
                                   f"yet: see ROADMAP.md, {_LATER[cfg.family]}")
@@ -58,6 +62,15 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, device):
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos):
     return family_module(cfg).decode_step(cfg, params, cache, tokens, pos)
+
+
+def reset_slot(cfg: ModelConfig, cache, slot: int) -> None:
+    """Zero batch row ``slot`` of a recurrent cache in place, so that a request
+    placed in a reused serving slot starts from a fresh state.  Attention
+    caches need nothing: positions at or past a slot's ``pos`` are masked."""
+    reset = getattr(family_module(cfg), "reset_slot", None)
+    if reset is not None:
+        reset(cache, slot)
 
 
 def leaves(tree) -> list[torch.Tensor]:

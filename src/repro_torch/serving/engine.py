@@ -7,6 +7,12 @@ step still pays the CUDA kernels' first-use costs).  A warm replica serves up
 to ``max_slots`` requests at once via slot-based continuous batching: every
 ``step()`` advances all active slots by one token (consuming prompt tokens
 first, then generating).
+
+Unlike the JAX replica, ``add`` zeroes the slot's rows of a recurrent cache
+(the ssm family's ``S``, ``tshift``, ``cshift``; ``registry.reset_slot``),
+so a request placed in a reused slot starts from a fresh state; the JAX
+replica resets only the position, which masks a stale attention cache but
+not a recurrent one (ROADMAP Queue 3).  Attention caches are left as they are.
 """
 
 from __future__ import annotations
@@ -100,6 +106,7 @@ class ModelReplica:
                 self.slots[i] = req
                 req.dispatch_t = now
                 self._pos[i] = 0
+                registry.reset_slot(self.cfg, self.cache, i)
                 prompt = req.prompt[:self.max_seq - req.max_new_tokens - 1]
                 self._prompt_left[i] = list(prompt[1:])
                 self._next_tok[i] = prompt[0] if prompt else 0

@@ -1,7 +1,8 @@
 """The port's import rule and device rule.
 
-``repro_torch`` (every module of it) and ``chip_smoke.py`` import neither jax
-nor any module of the JAX package ``repro``; entry points given no device
+``repro_torch`` (every module of it), ``chip_smoke.py`` and
+``tools/rwkv6_drift.py`` import neither jax nor any module of the JAX package
+``repro``; entry points given no device
 run on CUDA and raise where there is none.
 """
 
@@ -38,6 +39,8 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert "repro_torch.kernels.decode_attention.ops" in mods
     assert "repro_torch.kernels.moe_gemm.ops" in mods
     assert "repro_torch.kernels.flash_attention.ops" in mods
+    assert "repro_torch.kernels.rwkv6_scan.ops" in mods
+    assert "repro_torch.models.rwkv6" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -60,7 +63,8 @@ def _imported_roots(path: Path) -> set[str]:
     return roots
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                               ROOT / "tools" / "rwkv6_drift.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_neither_jax_nor_repro(path):
     assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}

@@ -178,12 +178,11 @@ def test_param_count_matches_jax():
 
 
 def test_other_families_name_their_slice():
-    # the moe and vlm families are ported (tests/test_torch_moe.py,
-    # tests/test_torch_prefill.py)
+    # the moe, vlm and ssm families are ported (tests/test_torch_moe.py,
+    # tests/test_torch_prefill.py, tests/test_torch_rwkv6.py)
     assert registry.param_count(get_smoke_config("deepseek-moe-16b")) > 0
     assert registry.param_count(get_smoke_config("internvl2-76b")) > 0
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        registry.init_params(get_smoke_config("rwkv6-3b"), device="meta")
+    assert registry.param_count(get_smoke_config("rwkv6-3b")) > 0
     with pytest.raises(NotImplementedError, match="hymba"):
         registry.param_count(get_smoke_config("hymba-1.5b"))
     with pytest.raises(NotImplementedError, match="whisper"):

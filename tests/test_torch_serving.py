@@ -27,6 +27,8 @@ F32 = dict(param_dtype="float32", compute_dtype="float32", remat="none")
 CFG = get_smoke_config("gemma3-4b").replace(**BF16, attn_impl="kernel")
 MOE = "deepseek-moe-16b"
 MOE_CFG = get_smoke_config(MOE).replace(**BF16, attn_impl="kernel")
+RWKV = "rwkv6-3b"
+RWKV_CFG = get_smoke_config(RWKV).replace(**BF16, attn_impl="kernel")
 
 POLICIES = {
     "sync": dict(keepalive_s=3.0, container_concurrency=2),
@@ -88,6 +90,10 @@ def test_moe_replica_greedy_outputs_equal_jax():
     _greedy_outputs_equal_jax(MOE)
 
 
+def test_rwkv6_replica_greedy_outputs_equal_jax():
+    _greedy_outputs_equal_jax(RWKV)
+
+
 def _greedy_outputs_equal_jax(arch):
     jcfg = jax_smoke(arch).replace(**F32)
     cfg = get_smoke_config(arch).replace(**F32, attn_impl="kernel")
@@ -115,6 +121,71 @@ def test_moe_replica_memory_bytes_equal_jax():
     jrep = jengine.ModelReplica(jax_smoke(MOE).replace(**BF16), max_slots=2, max_seq=48)
     rep = tengine.ModelReplica(MOE_CFG, max_slots=2, max_seq=48, device="cpu")
     assert rep.memory_bytes() == jrep.memory_bytes() > 0
+
+
+def test_rwkv6_replica_memory_bytes_equal_jax():
+    jrep = jengine.ModelReplica(jax_smoke(RWKV).replace(**BF16), max_slots=2, max_seq=48)
+    rep = tengine.ModelReplica(RWKV_CFG, max_slots=2, max_seq=48, device="cpu")
+    assert rep.memory_bytes() == jrep.memory_bytes() > 0
+
+
+def test_rwkv6_reused_slot_starts_from_a_fresh_state():
+    """A request placed in a slot another request used: the JAX replica leaves
+    the old recurrent state there (ROADMAP Queue 3, pinned here); the port's
+    replica zeroes it, so the request's logits are those it gets on a fresh
+    replica."""
+    jcfg = jax_smoke(RWKV).replace(**F32)
+    cfg = get_smoke_config(RWKV).replace(**F32, attn_impl="kernel")
+
+    def reqs(mod):
+        return [mod.ServeRequest(rid=0, fn=0, prompt=[3, 1, 4], max_new_tokens=2),
+                mod.ServeRequest(rid=1, fn=0, prompt=[15, 9, 2, 6], max_new_tokens=9),
+                mod.ServeRequest(rid=2, fn=0, prompt=[5, 3, 5], max_new_tokens=4)]
+
+    # JAX: slot 0 still holds request 0's state when request 2 is added there
+    jrep = jengine.ModelReplica(jcfg, max_slots=2, max_seq=32, seed=7)
+    j0, j1, j2 = reqs(jengine)
+    assert jrep.add(j0, 0.0) and jrep.add(j1, 0.0)
+    while not j0.done:
+        jrep.step(0.0)
+    assert jrep.add(j2, 1.0) and jrep.slots[0] is j2
+    s_slot0 = np.asarray(jrep.cache[0][0]["S"])[:, 0]
+    assert np.abs(s_slot0).max() > 1e-3
+
+    def logged(rep, slot, into):
+        decode = rep._decode
+
+        def run(tokens, pos):
+            logits = decode(tokens, pos)
+            into.append(logits[slot, 0].clone())
+            return logits
+        rep._decode = run
+
+    rep = tengine.ModelReplica(cfg, max_slots=2, max_seq=32, seed=7, device="cpu")
+    params = convert.params_from_jax(cfg, jax.tree.map(np.asarray, jrep.params))
+    rep.params = params
+    r0, r1, r2 = reqs(tengine)
+    assert rep.add(r0, 0.0) and rep.add(r1, 0.0)
+    while not r0.done:
+        rep.step(0.0)
+    reused = []
+    assert rep.add(r2, 1.0) and rep.slots[0] is r2
+    assert all(float(layer["S"][0].abs().max()) == 0.0 for layer in rep.cache)
+    logged(rep, 0, reused)
+    while not r2.done:
+        rep.step(1.0)
+
+    fresh_rep = tengine.ModelReplica(cfg, max_slots=2, max_seq=32, seed=7, device="cpu")
+    fresh_rep.params = params
+    fresh, f2 = [], reqs(tengine)[2]
+    assert fresh_rep.add(f2, 0.0) and fresh_rep.slots[0] is f2
+    logged(fresh_rep, 0, fresh)
+    while not f2.done:
+        fresh_rep.step(0.0)
+    assert len(reused) == len(fresh) == 3 + 4 - 1
+    for a, b in zip(reused, fresh):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-5)
+    assert r2.output == f2.output
 
 
 def test_replica_continuous_batching():
@@ -170,6 +241,10 @@ def test_serve_cli_on_cpu():
 
 def test_serve_cli_on_cpu_moe():
     _serve_cli_on_cpu(["--arch", MOE])
+
+
+def test_serve_cli_on_cpu_rwkv6():
+    _serve_cli_on_cpu(["--arch", RWKV])
 
 
 def _serve_cli_on_cpu(args):
