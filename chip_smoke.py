@@ -27,11 +27,18 @@ card's name and power limit as nvidia-smi gives them on a line of its own):
                   time, the plain time, a cuBLAS bmm chain's time and the
                   bound
   kernel.flash_attention
-                  flash attention (K2) against its plain version over the
-                  sweep of tests/test_kernels.py, the model paths' shapes, an
-                  odd S and a q_offset; at gemma3-4b's global and local prefill
-                  shapes its time, the plain time, SDPA's time (and backend)
-                  and the bound
+                  flash attention (K2) against its plain version in every
+                  design (the route each shape takes is printed; bf16 shapes
+                  at D 64, 128 and 256 also through the mma.sync design) over
+                  the sweep of tests/test_kernels.py, the model paths' shapes,
+                  an odd S and a q_offset, and each bf16 design also against
+                  its own arithmetic (P rounded to bf16 at each key tile's
+                  running max) at tight tolerances; rows that see no key
+                  exact 0; the wgmma kernels' registers and spills from the
+                  build log (no spill allowed); at gemma3-4b's global and
+                  local and deepseek-moe-16b's prefill shapes both bf16
+                  designs' times in turns, the plain time, SDPA's time (and
+                  backend) and the bound; the host time of a call
   kernel.rwkv6_scan
                   the wkv scan (K4) against its plain version in f32 and bf16
                   over the sweep of tests/test_kernels.py, the hard decay
@@ -131,7 +138,21 @@ K2_SHAPES = [
     (1, 1000, 1000, 8, 4, 256, True, 100, None, 0),      # odd S
     (2, 64, 200, 4, 2, 64, True, None, None, 136),       # q_offset: a chunk after 136 keys
 ]
-K2_GLOBAL, K2_LOCAL = K2_SHAPES[5], K2_SHAPES[6]
+K2_GLOBAL, K2_LOCAL, K2_MOE = K2_SHAPES[5], K2_SHAPES[6], K2_SHAPES[7]
+# K2's bf16 designs against their own arithmetic (ref.flash_attention_bf16p_ref at the
+# design's key tile: P rounded to bf16 at the tile's running max, float64 sums).  They differ
+# from it by the order of fp32 sums and the fp32 scores and exponent: one bf16 step of an
+# output where it lands near a rounding boundary, and one step of a p where a p does, which
+# in the first rows of a causal call (a few keys, p / l near 1) moves an output by up to
+# 2^-8 |v|: 0.0029 at |out| ~ 0.01 in the global layer, so atol 1e-3 fails the mma.sync
+# design there.  Element by element, (atol, rtol): over K2_SHAPES on the H100 the mma.sync
+# design reads at most 0.531 of it (max |err| 0.0078), the wgmma design 0.525 (0.0039).
+# The whole output, ||out - ref|| / ||ref||: mma.sync at most 1.51e-4, wgmma 1.83e-4
+# (1.21x), on the models' own K2 calls 1.44e-4; the plain version (P in fp32) reads 1.88e-3
+# to 2.30e-3 against it, and a sum that leaves out one 64-key tile of 2048 reads 0.19
+# (tests/test_torch_flash_attention.py).
+K2_BF16P_TOL = (4e-3, 1e-2)
+K2_BF16_NORM = 5e-4
 # K4: the 3 cases of tests/test_kernels.py::test_rwkv6_scan_sweep, T % 16 != 0 (a short
 # one and the forward over rwkv6-3b's prefill + 8 decode tokens), then the model shape:
 # rwkv6-3b's prefill call (B, T, H, D); K4_STATE run from a non-zero input state
@@ -205,6 +226,24 @@ def bound(nbytes: int, nops: int, dtype) -> tuple[float, str]:
     """Least time (ms) for the work, and which of bytes or operations sets it."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / PEAK_OPS[dtype]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def ptxas_usage(log: str, name: str) -> list[dict]:
+    """Registers and spill bytes of every kernel whose mangled name holds
+    ``name``, from a build's ``-Xptxas -v`` log."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = dict(kernel=ln.split("'")[1]) if name in ln else None
+            if cur is not None:
+                out.append(cur)
+        elif cur is not None and "spill stores" in ln:
+            fields = [x.strip().split(" ")[0] for x in ln.split(",")]
+            cur.update(stack=int(fields[0]), spill_stores=int(fields[1]),
+                       spill_loads=int(fields[2]))
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            cur["registers"] = int(ln.split("Used")[1].split("registers")[0])
+    return out
 
 
 def free_cuda() -> None:
@@ -338,15 +377,16 @@ def kernel_phase(ops, ref_fn) -> dict:
     return dict(out["full"], max_abs_err=worst)
 
 
-def bf16h_reading(out, tight) -> dict:
-    """A bf16 K3 output against its designs' arithmetic: the largest share of
-    K3_BF16H_TOL an element uses, and the norm of the error over the norm of
-    the output."""
+def tight_reading(out, tight, tol, tag: str) -> dict:
+    """A bf16 output against its design's own arithmetic: the largest share of
+    tol = (atol, rtol) an element uses, and the norm of the error over the
+    norm of the output."""
     out, tight = out.float(), tight.float()
     err = (out - tight).abs()
-    atol, rtol = K3_BF16H_TOL
-    return dict(bf16h_tol_share=(err / (atol + rtol * tight.abs())).max().item(),
-                bf16h_norm_rel=(err.norm() / tight.norm().clamp_min(1e-30)).item())
+    atol, rtol = tol
+    return {f"{tag}_max_abs_err": err.max().item(),
+            f"{tag}_tol_share": (err / (atol + rtol * tight.abs())).max().item(),
+            f"{tag}_norm_rel": (err.norm() / tight.norm().clamp_min(1e-30)).item()}
 
 
 def bmm_chain(x, wg, wu, wo):
@@ -400,8 +440,7 @@ def moe_gemm_phase(ops, ref_fn, tight_fn) -> dict:
         if x.dtype == torch.bfloat16:
             atol, rtol = K3_BF16H_TOL
             tight = tight_fn(x, wg, wu, wo).float()
-            res.update(bf16h_max_abs_err=(out.float() - tight).abs().max().item(),
-                       **bf16h_reading(out, tight))
+            res.update(tight_reading(out, tight, K3_BF16H_TOL, "bf16h"))
             torch.testing.assert_close(out.float(), tight, atol=atol, rtol=rtol)
             if res["bf16h_norm_rel"] > K3_BF16H_NORM:
                 raise AssertionError(f"{tuple(x.shape)}: ||out - bf16h|| / ||bf16h|| = "
@@ -546,10 +585,52 @@ def covered_us(spans) -> float:
     return total
 
 
-def flash_attention_phase(ops, ref_fn, visible) -> dict:
-    """flash_attention against its plain version over K2_SHAPES in f32 and
-    bf16; timed at gemma3-4b's global and local prefill shapes (bf16)."""
+def k2_designs(ops, dtype, d: int) -> list:
+    """Each K2 design that takes a call of this type and head dim."""
+    if dtype == torch.float32:
+        return ["fma"]
+    return ["mma", "wgmma"] if d in ops.WGMMA_HEAD_DIMS else ["mma"]
+
+
+def k2_host_us(ops, reps: int = 200) -> dict:
+    """Host time to enqueue one call of each bf16 design at a shape whose
+    device time is short (so the queue never backs up): the wgmma design
+    encodes its three tensor maps on the host at every call."""
+    q, k, v = (torch.randn(dims, device=DEVICE).to(torch.bfloat16)
+               for dims in ((1, 128, 1, 256), (1, 128, 1, 256), (1, 128, 1, 256)))
+    out: dict = {"mma": [], "wgmma": []}
+    for design in ("mma", "wgmma", "wgmma", "mma"):
+        for _ in range(20):
+            ops._launch(design, q, k, v)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            ops._launch(design, q, k, v)
+        out[design].append((time.perf_counter() - t0) / reps * 1e6)
+        torch.cuda.synchronize()
+    return {d: round(statistics.mean(x), 3) for d, x in out.items()}
+
+
+def flash_attention_phase(ops, ref_fn, tight_fn, visible, build) -> dict:
+    """flash_attention against its plain version over K2_SHAPES in every design
+    that takes each shape (float32: fma; bf16: mma and, at D 64, 128 and 256,
+    wgmma), each bf16 design also against its own arithmetic (tight_fn at the
+    design's key tile) at K2_BF16P_TOL and K2_BF16_NORM; rows that see no key
+    come out 0 in every design; the wgmma kernels' registers and spills, none
+    allowed; timed at gemma3-4b's global and local and deepseek-moe-16b's
+    prefill shapes (bf16), both bf16 designs in turns (mma, wgmma, wgmma,
+    mma), against the plain version, SDPA and the bound; the host time of a
+    call in each bf16 design."""
     gen = torch.Generator(device=DEVICE).manual_seed(2)
+    log = build.library_path("flash_attention", ops.SOURCES).with_suffix(".log").read_text()
+    usage = ptxas_usage(log, "fa_fwd_wgmma_kernel")
+    for u in usage:
+        d = u.pop("kernel").split("ILi")[1].split("E")[0]
+        phase("kernel.flash_attention.ptxas", kernel=f"fa_fwd_wgmma_kernel<{d}>", **u)
+        if u["spill_stores"] or u["spill_loads"]:
+            raise AssertionError(f"fa_fwd_wgmma_kernel<{d}> spills: {u}")
+    if len(usage) != len(ops.WGMMA_HEAD_DIMS):
+        raise AssertionError(f"the build log names {len(usage)} wgmma kernels")
 
     def inputs(shape, dtype):
         b, s, t, h, kh, d = shape[:6]
@@ -561,26 +642,59 @@ def flash_attention_phase(ops, ref_fn, visible) -> dict:
         return dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
 
     worst = 0.0
+    holds: dict = {}                            # per bf16 design: its worst tight readings
     for shape in K2_SHAPES:
+        d = shape[5]
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = inputs(shape, dtype)
-            out = ops.flash_attention(q, k, v, **kw(shape))
-            torch.cuda.synchronize()
-            exp = ref_fn(q, k, v, **kw(shape))
-            if not torch.isfinite(out).all():
-                raise AssertionError(f"non-finite kernel output {shape} {dtype}")
-            err = (out.float() - exp.float()).abs().max().item()
-            torch.testing.assert_close(out.float(), exp.float(), atol=TOL[dtype],
-                                       rtol=TOL[dtype])
-            worst = max(worst, err)
-            phase("kernel.flash_attention.check", shape=shape, dtype=str(dtype).split(".")[1],
-                  max_abs_err=f"{err:.3g}", tol=TOL[dtype])
-            del q, k, v, out, exp
+            exp = ref_fn(q, k, v, **kw(shape)).float()
+            for design in k2_designs(ops, dtype, d):
+                out = ops._launch(design, q, k, v, **kw(shape))
+                torch.cuda.synchronize()
+                if not torch.isfinite(out).all():
+                    raise AssertionError(f"non-finite kernel output {shape} {dtype} {design}")
+                res = dict(max_abs_err=(out.float() - exp).abs().max().item(), tol=TOL[dtype])
+                tight = None
+                if dtype == torch.bfloat16:
+                    tight = tight_fn(q, k, v, block_k=ops.block_k(design, d), **kw(shape))
+                    res.update(tight_reading(out, tight, K2_BF16P_TOL, "bf16p"))
+                    # the plain version (P in fp32), which the tight hold must part from
+                    res["plain_bf16p_norm_rel"] = tight_reading(exp, tight, K2_BF16P_TOL,
+                                                                "bf16p")["bf16p_norm_rel"]
+                    mine = holds.setdefault(design, {})
+                    for key in ("bf16p_max_abs_err", "bf16p_tol_share", "bf16p_norm_rel"):
+                        mine[key] = max(mine.get(key, 0.0), res[key])
+                phase("kernel.flash_attention.check", shape=shape,
+                      dtype=str(dtype).split(".")[1], design=design,
+                      default_route=ops.route(dtype, d) == design,
+                      **{key: f"{x:.3g}" for key, x in res.items()})
+                torch.testing.assert_close(out.float(), exp, atol=TOL[dtype], rtol=TOL[dtype])
+                if tight is not None:
+                    torch.testing.assert_close(out.float(), tight.float(), atol=K2_BF16P_TOL[0],
+                                               rtol=K2_BF16P_TOL[1])
+                    if res["bf16p_norm_rel"] > K2_BF16_NORM:
+                        raise AssertionError(f"{shape} {design}: ||out - bf16p|| / ||bf16p|| = "
+                                             f"{res['bf16p_norm_rel']}, bound {K2_BF16_NORM}")
+                worst = max(worst, res["max_abs_err"])
+                del out, tight
+            del q, k, v, exp
             free_cuda()
+    # S 96 against T 32, window 16: row i sees keys (i - 16, i], none once i >= 47
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 64), (torch.bfloat16, 256)):
+        q, k, v = inputs((1, 96, 32, 4, 2, d), dtype)
+        for design in k2_designs(ops, dtype, d):
+            out = ops._launch(design, q, k, v, causal=True, window=16)
+            torch.cuda.synchronize()
+            if torch.count_nonzero(out[:, 47:]) or not torch.count_nonzero(out[:, :47]):
+                raise AssertionError(f"{design} D {d}: rows that see no key are not 0")
+            torch.testing.assert_close(out.float(), ref_fn(q, k, v, window=16).float(),
+                                       atol=TOL[dtype], rtol=TOL[dtype])
+            phase("kernel.flash_attention.zero_rows", dtype=str(dtype).split(".")[1], d=d,
+                  design=design, rows_47_to_95_zero=True)
 
     dtype = torch.bfloat16
     rows = {}
-    for label, shape in (("global", K2_GLOBAL), ("local", K2_LOCAL)):
+    for label, shape in (("global", K2_GLOBAL), ("local", K2_LOCAL), ("moe", K2_MOE)):
         b, s, t, h, kh, d, _, window = shape[:8]
         q, k, v = inputs(shape, dtype)
         # SDPA on its own (B, H, S, D) layout; the local layer's window as a
@@ -605,21 +719,33 @@ def flash_attention_phase(ops, ref_fn, visible) -> dict:
         backend = sorted({e.key[:60] for e in kern})
         nbytes, nops = fa_work(shape, q.element_size())
         bound_ms, bound_by = bound(nbytes, nops, dtype)
-        row = dict(ms=time_ms(lambda: ops.flash_attention(q, k, v, **kw(shape)), iters=20),
+        turns: dict = {"mma": [], "wgmma": []}
+        for design in ("mma", "wgmma", "wgmma", "mma"):
+            turns[design].append(time_ms(lambda: ops._launch(design, q, k, v, **kw(shape)),
+                                         iters=20))
+        row = dict(ms=statistics.mean(turns["wgmma"]), mma_ms=statistics.mean(turns["mma"]),
                    plain_ms=time_ms(lambda: ref_fn(q, k, v, **kw(shape)), iters=5),
                    library_ms=time_ms(library, iters=20), bound_ms=bound_ms,
                    bound_by=bound_by, max_abs_err=worst)
         phase("kernel.flash_attention.time", layer=label, shape=shape, dtype="bfloat16",
-              bytes=nbytes, ops=nops, kernel_us=f"{row['ms'] * 1e3:.3f}",
+              bytes=nbytes, ops=nops, route=ops.route(dtype, d),
+              wgmma_us=[f"{x * 1e3:.3f}" for x in turns["wgmma"]],
+              mma_us=[f"{x * 1e3:.3f}" for x in turns["mma"]],
               plain_us=f"{row['plain_ms'] * 1e3:.3f}",
               library_sdpa_us=f"{row['library_ms'] * 1e3:.3f}", sdpa_kernels=repr(backend),
               bound_us=f"{row['bound_ms'] * 1e3:.4f}", bound_by=bound_by,
               bound_share=f"{row['bound_ms'] / row['ms']:.4f}",
-              achieved_tflops=f"{nops / row['ms'] / 1e9:.2f}")
+              achieved_tflops=f"{nops / row['ms'] / 1e9:.2f}",
+              wgmma_sm_clock_power=repr(loaded_clock(
+                  lambda: ops._launch("wgmma", q, k, v, **kw(shape)), n=100)))
         rows[label] = row
         del q, k, v, qt, kt, vt
         free_cuda()
-    return dict(rows["global"], local_layer=rows["local"])
+    host = k2_host_us(ops)
+    phase("kernel.flash_attention.host", host_us_per_call=host,
+          map_encoding_us=f"{host['wgmma'] - host['mma']:.3f}")
+    return dict(rows["global"], local_layer=rows["local"], moe_layer=rows["moe"],
+                bf16p_holds=holds, host_us_per_call=host)
 
 
 def k4_inputs(shape, dtype, gen, hard=False):
@@ -837,8 +963,17 @@ def hold_calls(calls: list, plain: dict) -> dict:
             torch.testing.assert_close(o.float(), e.float(), atol=atol, rtol=rtol)
             err[name] = max(err.get(name, 0.0), (o.float() - e.float()).abs().max().item())
         del exp, pairs
+        if name == "flash_attention" and out.dtype == torch.bfloat16:
+            for key, v in tight_reading(out, plain["flash_attention_bf16p"](*args, **kw),
+                                        K2_BF16P_TOL, "bf16p").items():
+                err[f"flash_attention_{key}"] = max(err.get(f"flash_attention_{key}", 0.0), v)
+            if err["flash_attention_bf16p_norm_rel"] > K2_BF16_NORM:
+                raise AssertionError(f"a K2 call on the model's inputs: ||out - bf16p|| / "
+                                     f"||bf16p|| = {err['flash_attention_bf16p_norm_rel']}, "
+                                     f"bound {K2_BF16_NORM}")
         if name == "moe_gemm" and out.dtype == torch.bfloat16:
-            for key, v in bf16h_reading(out, plain["moe_gemm_bf16h"](*args, **kw)).items():
+            for key, v in tight_reading(out, plain["moe_gemm_bf16h"](*args, **kw),
+                                        K3_BF16H_TOL, "bf16h").items():
                 err[f"moe_gemm_{key}"] = max(err.get(f"moe_gemm_{key}", 0.0), v)
             if err["moe_gemm_bf16h_norm_rel"] > K3_BF16H_NORM:
                 raise AssertionError(f"a K3 call on the model's inputs: ||out - bf16h|| / "
@@ -1225,7 +1360,7 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import ops as k1_ops
     from repro_torch.kernels.flash_attention import flash_attention_ref
     from repro_torch.kernels.flash_attention import ops as k2_ops
-    from repro_torch.kernels.flash_attention.ref import visible
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bf16p_ref, visible
     from repro_torch.kernels.moe_gemm import moe_expert_ffn_ref
     from repro_torch.kernels.moe_gemm import ops as k3_ops
     from repro_torch.kernels.moe_gemm.ref import moe_expert_ffn_bf16h_ref
@@ -1238,7 +1373,11 @@ def main() -> int:
                "rwkv6_scan": k4_ops}
     plain = {"decode_attention": decode_attention_ref, "flash_attention": flash_attention_ref,
              "moe_gemm": moe_expert_ffn_ref, "rwkv6_scan": rwkv6_scan_ref,
-             "moe_gemm_bf16h": moe_expert_ffn_bf16h_ref}
+             "moe_gemm_bf16h": moe_expert_ffn_bf16h_ref,
+             # the bf16 K2 call's arithmetic at the key tile of the design its route runs
+             "flash_attention_bf16p": lambda q, k, v, **kw: flash_attention_bf16p_ref(
+                 q, k, v, block_k=k2_ops.block_k(k2_ops.route(q.dtype, q.shape[3]),
+                                                 q.shape[3]), **kw)}
     paths: dict[str, dict] = {}                # launches per kernel on each driven path
     t_run = time.monotonic()
 
@@ -1261,7 +1400,7 @@ def main() -> int:
     k3 = timed("kernel.moe_gemm", moe_gemm_phase, k3_ops, moe_expert_ffn_ref,
                moe_expert_ffn_bf16h_ref)
     k2 = timed("kernel.flash_attention", flash_attention_phase, k2_ops, flash_attention_ref,
-               visible)
+               flash_attention_bf16p_ref, visible, k2_ops.build)
     k4 = timed("kernel.rwkv6_scan", rwkv6_scan_phase, k4_ops, rwkv6_scan_ref)
 
     gemma = bf16("gemma3-4b")
@@ -1337,9 +1476,11 @@ def main() -> int:
     for r in rows:
         row = r.pop("row")
         launches = per_path(r["name"])
-        # the timed shape's numbers; other shapes' (K2's local layer, K3's
-        # occupied decode and prefill calls) ride along under their own keys
-        extra = {k: v for k, v in row.items() if isinstance(v, dict)}
+        # the timed shape's numbers; the rest (K2's local and moe layers and
+        # its mma.sync design, K3's occupied decode and prefill calls, the
+        # tight holds' readings) ride along under their own keys
+        extra = {k: v for k, v in row.items() if k not in
+                 ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         out.append(dict(r, launches=sum(launches.values()), launches_per_path=launches,
                         max_abs_err=row["max_abs_err"], ms=row["ms"],
                         plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],

@@ -5,7 +5,9 @@ at the root of the checkout (listed in ``.gitignore``), under a name that
 carries a hash of the sources and flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is.  Nothing falls back: a missing ``nvcc`` or a
 failed compile raises.  The compiler's output (``-Xptxas -v``: registers,
-shared memory, spills) is kept beside the library as ``<name>.log``.
+shared memory, spills) is kept beside the library as ``<name>.log``.  The
+headers the sources share (``kernels/csrc/*.cuh``) are on nvcc's include path
+and go into the hash too, so an edited header rebuilds every library.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import tempfile
 from pathlib import Path
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+INCLUDE_DIR = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,7 +41,7 @@ def _nvcc() -> str:
 
 def library_path(name: str, sources: tuple[Path, ...]) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in (*sources, *sorted(INCLUDE_DIR.glob("*.cuh"))):
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -53,7 +56,7 @@ def build(name: str, sources: tuple[Path, ...]) -> Path:
     # a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+    cmd = [_nvcc(), *NVCC_FLAGS, f"-I{INCLUDE_DIR}", "-o", tmp, *map(str, sources)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)

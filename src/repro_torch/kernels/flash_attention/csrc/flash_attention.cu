@@ -16,40 +16,57 @@
 // D = 256, causal, is 137.4 GFLOP against 101 MB of q, k, v and out: 139 us at the bf16
 // tensor-core peak, against 30 us for the bytes.
 //
-// Design (a straightforward first kernel, right before fast):
-//   * Grid (ceil(S / 64), H, B): one block per 64-row query tile of one head of one
-//     sequence.  The TPU kernel walks the kv blocks of a tile in sequence (the
-//     "arbitrary" grid axis) with (m, l, acc) in VMEM scratch; here a loop inside the block
-//     does that, with (m, l, acc) in registers.  Tiles are issued heaviest first (the last
-//     query tiles of a causal call see the most keys).
-//   * Block skip without a host sync: the visible key range of the tile, [lo, hi), follows
-//     from S, T, window, q_offset and the tile index alone (host ints and blockIdx).  The loop
-//     runs over the 64-key tiles from the one holding lo, rounded down to a tile edge, to the
-//     last one below hi; a tile wholly outside the range is never loaded.
-//   * Tiles are loaded with 16-byte reads, masked at the S and T tails, into dynamic shared
-//     memory (opted in per instantiation above 48 KB).
-//   * float32 inputs, fa_fwd_kernel: products on CUDA cores in fp32 (FMA).  q (64 x D), the
-//     K and V tiles (64 x D) and the probabilities (64 x 64) sit in shared memory (211 KB at
-//     D = 256).  Each of 256 threads owns 4 query rows (ty + 16 i) x 4 keys (tx + 16 j) of
-//     the score tile, and the same 4 rows x D / 16 output dims (owned_dim) of the
+// Three designs; the wrapper (ops.py) picks one by type and D (ops.route) after checking
+// shapes, types, strides and alignment:
+//   * bfloat16 at D in {64, 128, 256} (every model path: gemma3-4b D 256, the moe archs D 128,
+//     hymba D 64), fa_fwd_wgmma_kernel: one block per 128-row query tile of one (b, h), three
+//     warpgroups.  A producer warpgroup (one thread issuing TMA, its registers lowered with
+//     setmaxnreg) loads the Q tile once and keeps a ring of 2 stages of K and V tiles full (64
+//     keys a stage at D 256, 128 below; 128-byte swizzle; a full and an empty mbarrier per
+//     stage).  Two consumer warpgroups of 64 query rows each compute S = Q K^T with wgmma
+//     (m64nBKk16, both operands in shared memory), the online softmax in registers on the
+//     accumulator layout (exp2 of scores pre-scaled by log2(e) / sqrt(D); the mask only on
+//     tiles that cross the causal diagonal, the window's lower edge or T's tail), and O += P V
+//     with wgmma (P rounded to bf16 and repacked into A registers, V from shared memory through
+//     the transpose bit), O in fp32 registers rescaled by alpha per tile.  The TMA maps are 4-D
+//     over (D, heads, S or T, B) with the tensors' own strides, so the zero fill past S and T
+//     stops at each sequence's own end.  The maps are encoded on the host at every call.
+//     Blocks are issued with every (b, h)'s heaviest query tile first.
+//   * bfloat16 at D in {16, 32} (smoke configs), fa_fwd_mma_kernel: grid (ceil(S / 64), H,
+//     B), one block per 64-row query tile of one head of one sequence, 4 warps of 16 query rows
+//     each, warp mma.sync m16n8k16 (bf16 in, fp32 accumulators) for S = Q K^T and for P V with
+//     P rounded to bf16, fragments loaded with ldmatrix from bf16 tiles staged by all threads
+//     with 16-byte loads (101 KB at D = 256, two blocks per SM).  It takes every D, and the
+//     tests and chip_smoke.py hold and time it beside the wgmma design on the model shapes.
+//   * float32, fa_fwd_kernel: the same grid, products on CUDA cores in fp32 (FMA).  q (64 x
+//     D), the K and V tiles (64 x D) and the probabilities (64 x 64) sit in shared memory (211
+//     KB at D = 256).  Each of 256 threads owns 4 query rows (ty + 16 i) x 4 keys (tx + 16 j)
+//     of the score tile, and the same 4 rows x D / 16 output dims (owned_dim) of the
 //     accumulator; Q and K rows are read as float4 with a padded row stride, so a
 //     quarter-warp's reads fall in distinct banks.  A row's 16 threads are one half-warp, so
 //     the row max and sum are shuffles.
-//   * bfloat16 inputs: the same tiling on the tensor cores, fa_fwd_mma_kernel: 4 warps of 16
-//     query rows each, warp mma.sync m16n8k16 (bf16 in, fp32 accumulators) for S = Q K^T and
-//     for P V with P rounded to bf16, fragments loaded with ldmatrix from bf16 tiles in
-//     shared memory (101 KB at D = 256, two blocks per SM).  Softmax, mask and (m, l) stay in
-//     fp32 registers.  wgmma and a TMA / cp.async ring are left for later work.
+// In every design a loop inside the block walks the key tiles of its query tile in order (the
+// TPU kernel's "arbitrary" grid axis, with (m, l, acc) in VMEM scratch there and in registers
+// here), and the block skip needs no host sync: the visible key range of the tile, [lo, hi),
+// follows from S, T, window, q_offset and the tile index alone (host ints and blockIdx), and
+// the loop runs over the key tiles from the one holding lo, rounded down to a tile edge, to the
+// last one below hi; a tile wholly outside the range is never loaded.  A masked score gives
+// p = 0 exactly, so a row with no visible key is written as 0.
 // Supports D in {16, 32, 64, 128, 256}, any S, T >= 1, any G, T = float or bfloat16.  The
 // wrapper (ops.py) checks shapes, types, strides and alignment before the launch.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include <cmath>
+
+#include "hopper.cuh"
 
 namespace {
+
+using namespace hopper;
 
 constexpr int BQ = 64;           // query rows per block
 constexpr int BK = 64;           // keys per tile
@@ -285,11 +302,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // Stage rows [0, 64) of a (rows, D) bf16 slab into shared memory as they are (ld elements per
 // row); rows at or past n_valid are zeros.
 template <int D>
@@ -461,6 +473,273 @@ fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   }
 }
 
+// ---------------------------------------------------------------------------------------
+// bfloat16 at D in {64, 128, 256}: a TMA ring and wgmma, producer and consumer warpgroups
+// ---------------------------------------------------------------------------------------
+
+constexpr int WG_BQ = 128;       // query rows per block: consumer warpgroups 0 and 1, 64 each
+constexpr int WG_NT = 384;       // and the producer, warpgroup 2
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x on the SFU alone (ex2.approx.ftz: relative error about 2^-22; a subnormal result, a p
+// below 2^-126 of its row's max, is flushed to 0).  exp2f adds the handling of subnormals
+// around the same instruction, and the softmax's exponents are a bottleneck at D 128: the
+// deepseek-moe-16b layer read 96.8 us with exp2f, 91.0 with this (PERF.md, section 6).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int D>
+struct WgCfg {
+  static constexpr int BK = D == 256 ? 64 : 128;   // keys per stage
+  static constexpr int STAGES = 2;
+  static constexpr int BOXES = D / 64;             // 64-column (128-byte) TMA boxes per row
+  static constexpr int Q_BYTES = WG_BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;      // the K (or the V) of one stage
+  static constexpr int STAGE = 2 * KV_BYTES;
+  // Q, the ring, Q's barrier, full[] and empty[], and room to align Q to 1024 bytes
+  static constexpr int SMEM = Q_BYTES + STAGES * STAGE + (1 + 2 * STAGES) * 8 + 1024;
+  static_assert(SMEM <= 232448, "more shared memory than a block can have");
+};
+
+// One block per 128-row query tile of one (b, h); blockIdx.x = b * H + h, blockIdx.y the
+// tile, taken from the last: every head's heaviest tiles (under a causal mask) are issued
+// first, and the G query heads of a kv head run side by side, sharing its K and V in L2.
+//
+// Shared memory, every tile as TMA writes it (rows of 128 bytes, 128-byte swizzle), in boxes
+// of 64 columns: Q (D / 64 boxes of 128 rows), then STAGES stages of [K: D / 64 boxes of BK
+// rows][V: the same], then the barriers.  The producer's one thread loads Q once and keeps the
+// ring full: it waits on a stage's empty barrier (one arrival per consumer warpgroup), then
+// loads K and V into it against its full barrier.  Consumer warpgroup c owns rows
+// [64 c, 64 c + 64) of the tile: for every key tile it
+//   * S (64 x BK, fp32) = Q K^T, wgmma m64nBKk16 with both operands in shared memory,
+//     K-major (Q's rows and K's rows hold D);
+//   * takes the online softmax on S's accumulator layout (thread g = lane / 4, t = lane % 4
+//     of warp w holds rows 16 w + g and + 8, columns 8 j + 2 t and + 1; a row's values lie on
+//     the 4 threads of a quad), in log2 units (2^x of scores times log2(e) / sqrt(D)); the
+//     mask and the per-element bounds run only on a tile that crosses the causal diagonal, the
+//     window's lower edge or T's tail for one of its rows;
+//   * rounds P to bf16 into the A-register layout of wgmma (that of mma.m16n8k16's A
+//     fragment, which S's accumulators already follow two n-tiles at a time), and
+//     O (64 x D, fp32) = alpha O + P V, wgmma m64nDk16 with A from registers and V
+//     MN-major through the transpose bit;
+//   * releases the stage.
+// A key tile that no row of a warpgroup sees (outside [w_lo, w_hi)) is waited for and
+// released, never multiplied.  TMA's zero fill covers S's and T's tails: the maps are 4-D
+// over (D, heads, S or T, B), so a box never reaches into the next sequence.
+template <int D>
+__global__ void __launch_bounds__(WG_NT, 1)
+fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
+                    int s_len, int t_len, int h, int g_n, int causal, int window, int q_offset,
+                    float scale, float softcap) {
+  using Cfg = WgCfg<D>;
+  constexpr int BK = Cfg::BK, STAGES = Cfg::STAGES;
+  extern __shared__ __align__(1024) unsigned char fa_wg_smem[];
+  const uint32_t qs = (smem_u32(fa_wg_smem) + 1023) & ~1023u;
+  const uint32_t ring = qs + Cfg::Q_BYTES;
+  const uint32_t q_bar = ring + STAGES * Cfg::STAGE;
+  const uint32_t full0 = q_bar + 8, empty0 = full0 + 8 * STAGES;
+
+  const int qt = gridDim.y - 1 - blockIdx.y;   // heaviest tiles first
+  const int hh = blockIdx.x % h, b = blockIdx.x / h;
+  const int kh = hh / g_n;
+  const int q0 = qt * WG_BQ;
+  const int q_rows = min(WG_BQ, s_len - q0);
+
+  // keys any row of the block sees, [k_lo, k_hi), from host ints and blockIdx alone
+  int k_lo = 0, k_hi = t_len;
+  if (causal) k_hi = min(k_hi, q0 + q_rows + q_offset);
+  if (window > 0) k_lo = max(k_lo, q0 + q_offset - window + 1);
+  const int tile_lo = (k_lo / BK) * BK;
+  const int n_tiles = k_hi > k_lo ? (k_hi - tile_lo + BK - 1) / BK : 0;
+  const int wgrp = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);     // the producer's expect_tx
+      mbar_init(empty0 + 8 * s, 2);    // one arrival per consumer warpgroup
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wgrp == 2) {
+    // producer: one thread loads Q, then keeps the ring of K and V tiles full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256 && n_tiles > 0) {
+      mbar_expect_tx(q_bar, Cfg::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < Cfg::BOXES; ++c)
+        tma_load_4d(qs + c * WG_BQ * 128, &tq, 64 * c, hh, q0, b, q_bar);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % STAGES, k0 = tile_lo + it * BK;
+        if (it >= STAGES) mbar_wait(empty0 + 8 * s, (it / STAGES - 1) & 1);
+        const uint32_t kt = ring + s * Cfg::STAGE, full = full0 + 8 * s;
+        mbar_expect_tx(full, Cfg::STAGE);
+#pragma unroll
+        for (int c = 0; c < Cfg::BOXES; ++c) {
+          tma_load_4d(kt + c * BK * 128, &tk, 64 * c, kh, k0, b, full);
+          tma_load_4d(kt + Cfg::KV_BYTES + c * BK * 128, &tv, 64 * c, kh, k0, b, full);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int r0 = q0 + 64 * wgrp;              // the warpgroup's first row
+    const int wg_rows = min(64, s_len - r0);    // <= 0: the tile's second half lies past S
+    // keys the warpgroup's rows see: [w_lo, w_hi)
+    int w_lo = 0, w_hi = wg_rows > 0 ? t_len : 0;
+    if (causal) w_hi = min(w_hi, r0 + wg_rows + q_offset);
+    if (window > 0) w_lo = max(w_lo, r0 + q_offset - window + 1);
+    const int pos_a = r0 + 16 * w + g + q_offset;   // positions of the thread's rows g, g + 8
+    const int pos_b = pos_a + 8;
+    // a score s becomes s * scale (or softcap * tanh(s * scale / softcap)), times mul: log2 units
+    const float mul = softcap > 0.f ? LOG2E : scale * LOG2E;
+    const float cap_in = softcap > 0.f ? scale / softcap : 0.f;
+    const uint32_t qa = qs + wgrp * 64 * 128;
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    // running max (log2 units) and this thread's share of the row sum, rows g (a) and g + 8 (b)
+    float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+    bool ok = true;   // every wait ended (mbar_wait_bounded)
+    if (n_tiles > 0) ok = mbar_wait_bounded(q_bar, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % STAGES, k0 = tile_lo + it * BK;
+      ok &= mbar_wait_bounded(full0 + 8 * s, (it / STAGES) & 1);
+      if (k0 < w_hi && k0 + BK > w_lo) {
+        const uint32_t kt = ring + s * Cfg::STAGE, vt = kt + Cfg::KV_BYTES;
+        // S = Q K^T
+        float sc[BK / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks)
+          wgmma_ss<BK, 0>(sc, gmma_desc(qa + (ks / 4) * WG_BQ * 128 + (ks % 4) * 32, 16, 1024),
+                          gmma_desc(kt + (ks / 4) * BK * 128 + (ks % 4) * 32, 16, 1024), ks);
+        wgmma_commit();
+        fence_acc(sc);
+        wgmma_wait<0>();
+        fence_acc(sc);
+
+        if (softcap > 0.f) {
+#pragma unroll
+          for (int i = 0; i < BK / 2; ++i) sc[i] = softcap * tanhf(sc[i] * cap_in);
+        }
+        // every key of the tile visible to every row of the warpgroup: no mask
+        const bool whole = k0 + BK <= t_len && (!causal || k0 + BK - 1 <= r0 + q_offset) &&
+                           (window <= 0 || k0 > r0 + 63 + q_offset - window);
+        if (!whole) {
+#pragma unroll
+          for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int kpos = k0 + 8 * j + 2 * t4 + e;
+              const bool in = kpos < t_len;
+              if (!(in && (!causal || kpos <= pos_a) && (window <= 0 || kpos > pos_a - window)))
+                sc[4 * j + e] = -INFINITY;
+              if (!(in && (!causal || kpos <= pos_b) && (window <= 0 || kpos > pos_b - window)))
+                sc[4 * j + 2 + e] = -INFINITY;
+            }
+        }
+
+        // online softmax, each row over the 4 threads of its quad
+        float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          mx_a = fmaxf(mx_a, fmaxf(sc[4 * j], sc[4 * j + 1]));
+          mx_b = fmaxf(mx_b, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+        }
+#pragma unroll
+        for (int off = 1; off <= 2; off <<= 1) {
+          mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+          mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+        }
+        const float mn_a = fmaxf(m_a, mx_a * mul), mn_b = fmaxf(m_b, mx_b * mul);
+        // a row that has seen no key keeps m = -inf and takes its exponents from 0: its masked
+        // scores (-inf) give p = 0 and its alpha 0, so it comes out as 0
+        const float base_a = mn_a == -INFINITY ? 0.f : mn_a;
+        const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
+        const float al_a = exp2_approx(m_a - base_a), al_b = exp2_approx(m_b - base_b);
+        m_a = mn_a;
+        m_b = mn_b;
+        float ps_a = 0.f, ps_b = 0.f;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            sc[4 * j + e] = exp2_approx(fmaf(sc[4 * j + e], mul, -base_a));
+            sc[4 * j + 2 + e] = exp2_approx(fmaf(sc[4 * j + 2 + e], mul, -base_b));
+            ps_a += sc[4 * j + e];
+            ps_b += sc[4 * j + 2 + e];
+          }
+        l_a = l_a * al_a + ps_a;   // from the unrounded p
+        l_b = l_b * al_b + ps_b;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          o[4 * j] *= al_a;
+          o[4 * j + 1] *= al_a;
+          o[4 * j + 2] *= al_b;
+          o[4 * j + 3] *= al_b;
+        }
+        // P in bf16, as A fragments: keys 16 kk .. 16 kk + 15 are S's n-tiles 2 kk and 2 kk + 1
+        uint32_t pa[BK / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+          pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+          pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+          pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+        }
+
+        // O += P V
+        fence_acc(o);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_rs<D, 1>(o, pa[kk], gmma_desc(vt + kk * 16 * 128, BK * 128, 1024), 1);
+        wgmma_commit();
+        fence_acc(o);
+        wgmma_wait<0>();
+        fence_acc(o);
+      }
+      if (threadIdx.x % 128 == 0) mbar_arrive(empty0 + 8 * s);
+    }
+
+    // out = O / max(l, 1e-30): 0 for a row that saw no key; NaN if a wait gave up
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+      l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+    }
+    const float nan = __int_as_float(0x7fc00000);
+    const float inv_a = ok ? 1.f / fmaxf(l_a, 1e-30f) : nan;
+    const float inv_b = ok ? 1.f / fmaxf(l_b, 1e-30f) : nan;
+    const int row_a = r0 + 16 * w + g;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_a + 8 * r;
+      if (row >= s_len) continue;
+      const float inv = r ? inv_b : inv_a;
+      __nv_bfloat16* po = out + (((long long)b * s_len + row) * h + hh) * D + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(po + 8 * j) =
+            pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------------------
+
 // Opt a kernel into `bytes` of dynamic shared memory, once (above 48 KB it must be asked for).
 template <typename Kernel>
 int opt_in(Kernel kernel, int bytes, bool& done) {
@@ -472,82 +751,116 @@ int opt_in(Kernel kernel, int bytes, bool& done) {
   return 0;
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int b, int s_len,
-           int t_len, int h, int kv_heads, long long q_sb, long long q_ss, long long q_sh,
-           long long k_sb, long long k_st, long long k_sh, long long v_sb, long long v_st,
-           long long v_sh, int causal, int window, int q_offset, float scale, float softcap,
-           cudaStream_t stream) {
-  const dim3 grid((s_len + BQ - 1) / BQ, h, b);
+// One call's arguments, as flash_attention_launch takes them (strides in elements).
+struct Call {
+  const void *q, *k, *v;
+  void* out;
+  int b, s_len, t_len, h, kv_heads;
+  long long q_sb, q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh;
+  int causal, window, q_offset;
+  float scale, softcap;
+  cudaStream_t stream;
+};
+
+// The grid (ceil(S / 64), H, B) of the FMA and mma.sync kernels.  D keeps one opt-in flag per
+// kernel (the kernels of one T share a type).
+template <typename T, int D, typename Kernel>
+int launch_64(Kernel kernel, int threads, int smem, const Call& c) {
   static bool opted_in = false;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    const int rc = opt_in(fa_fwd_mma_kernel<D>, MmaSmem<D>::BYTES, opted_in);
-    if (rc != 0) return rc;
-    fa_fwd_mma_kernel<D><<<grid, MMA_NT, MmaSmem<D>::BYTES, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(out), s_len, t_len, h, h / kv_heads, q_sb, q_ss, q_sh, k_sb, k_st,
-        k_sh, v_sb, v_st, v_sh, causal, window, q_offset, scale, softcap);
-  } else {
-    const int rc = opt_in(fa_fwd_kernel<D>, Smem<D>::BYTES, opted_in);
-    if (rc != 0) return rc;
-    fa_fwd_kernel<D><<<grid, NT, Smem<D>::BYTES, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(out), s_len, t_len, h, h / kv_heads, q_sb, q_ss, q_sh, k_sb, k_st,
-        k_sh, v_sb, v_st, v_sh, causal, window, q_offset, scale, softcap);
-  }
+  const int rc = opt_in(kernel, smem, opted_in);
+  if (rc != 0) return rc;
+  const dim3 grid((c.s_len + BQ - 1) / BQ, c.h, c.b);
+  kernel<<<grid, threads, smem, c.stream>>>(
+      static_cast<const T*>(c.q), static_cast<const T*>(c.k), static_cast<const T*>(c.v),
+      static_cast<T*>(c.out), c.s_len, c.t_len, c.h, c.h / c.kv_heads, c.q_sb, c.q_ss, c.q_sh,
+      c.k_sb, c.k_st, c.k_sh, c.v_sb, c.v_st, c.v_sh, c.causal, c.window, c.q_offset, c.scale,
+      c.softcap);
   return 0;
 }
 
-template <typename T>
-int dispatch_d(int d, const void* q, const void* k, const void* v, void* out, int b,
-               int s_len, int t_len, int h, int kv_heads, long long q_sb, long long q_ss,
-               long long q_sh, long long k_sb, long long k_st, long long k_sh, long long v_sb,
-               long long v_st, long long v_sh, int causal, int window, int q_offset,
-               float scale, float softcap, cudaStream_t stream) {
-#define FLASH_ATTENTION_CASE(DD)                                                            \
-  case DD:                                                                                  \
-    return launch<T, DD>(q, k, v, out, b, s_len, t_len, h, kv_heads, q_sb, q_ss, q_sh, k_sb, \
-                         k_st, k_sh, v_sb, v_st, v_sh, causal, window, q_offset, scale,     \
-                         softcap, stream);
-  switch (d) {
-    FLASH_ATTENTION_CASE(16)
-    FLASH_ATTENTION_CASE(32)
-    FLASH_ATTENTION_CASE(64)
-    FLASH_ATTENTION_CASE(128)
-    FLASH_ATTENTION_CASE(256)
-    default:
-      return (int)cudaErrorInvalidValue;
+// A 4-D map over a bf16 tensor in the model's layout (B, rows, heads, D) with element strides
+// (s_b, s_r, s_h, 1): dimensions (D, heads, rows, B), innermost first; boxes of 64 columns x
+// 1 head x box_rows rows x 1 sequence; zero fill past every edge.
+int encode_4d(CUtensorMap* map, const void* p, int b, int rows, int heads, int d, long long s_b,
+              long long s_r, long long s_h, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)rows, (cuuint64_t)b};
+  // a dimension of extent 1 is never stepped along: give it the stride of a packed tensor,
+  // whatever stride (0, say) the tensor reports there
+  cuuint64_t strides[3] = {(cuuint64_t)s_h * 2, (cuuint64_t)s_r * 2, (cuuint64_t)s_b * 2};
+  if (heads == 1) strides[0] = (cuuint64_t)d * 2;
+  if (rows == 1) strides[1] = strides[0] * heads;
+  if (b == 1) strides[2] = strides[1] * rows;
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult rc = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims,
+                         strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int D>
+int launch_wgmma(const Call& c) {
+  using Cfg = WgCfg<D>;
+  const int q_tiles = (c.s_len + WG_BQ - 1) / WG_BQ;
+  if (q_tiles > 65535) return (int)cudaErrorInvalidValue;
+  // encoded on the host at every call (they hold the call's pointers and strides)
+  CUtensorMap tq, tk, tv;
+  int rc = encode_4d(&tq, c.q, c.b, c.s_len, c.h, D, c.q_sb, c.q_ss, c.q_sh, WG_BQ);
+  if (!rc) rc = encode_4d(&tk, c.k, c.b, c.t_len, c.kv_heads, D, c.k_sb, c.k_st, c.k_sh, Cfg::BK);
+  if (!rc) rc = encode_4d(&tv, c.v, c.b, c.t_len, c.kv_heads, D, c.v_sb, c.v_st, c.v_sh, Cfg::BK);
+  if (rc) return rc;
+  static bool opted_in = false;
+  rc = opt_in(fa_fwd_wgmma_kernel<D>, Cfg::SMEM, opted_in);
+  if (rc) return rc;
+  fa_fwd_wgmma_kernel<D><<<dim3(c.h * c.b, q_tiles), WG_NT, Cfg::SMEM, c.stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(c.out), c.s_len, c.t_len, c.h, c.h / c.kv_heads,
+      c.causal, c.window, c.q_offset, c.scale, c.softcap);
+  return 0;
+}
+
+// design 0: fa_fwd_kernel (float32), 1: fa_fwd_mma_kernel (bfloat16), 2: fa_fwd_wgmma_kernel
+// (bfloat16, D >= 64)
+template <int D>
+int launch(int design, const Call& c) {
+  using bf16 = __nv_bfloat16;
+  if (design == 0) return launch_64<float, D>(fa_fwd_kernel<D>, NT, Smem<D>::BYTES, c);
+  if (design == 1) return launch_64<bf16, D>(fa_fwd_mma_kernel<D>, MMA_NT, MmaSmem<D>::BYTES, c);
+  if constexpr (D >= 64) {
+    if (design == 2) return launch_wgmma<D>(c);
   }
-#undef FLASH_ATTENTION_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  window <= 0 means none, softcap <= 0 means none, causal
-// is 0 or 1.  Strides are in elements.  Returns cudaGetLastError() after the launch (0 on
-// success).
+// design: 0 = fp32 FMA (float32), 1 = mma.sync (bfloat16, any D), 2 = TMA + wgmma (bfloat16,
+// D in {64, 128, 256}).  window <= 0 means none, softcap <= 0 means none, causal is 0 or 1.
+// Strides are in elements.  Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
-                                      int dtype, int b, int s_len, int t_len, int h,
+                                      int design, int b, int s_len, int t_len, int h,
                                       int kv_heads, int d, long long q_sb, long long q_ss,
                                       long long q_sh, long long k_sb, long long k_st,
                                       long long k_sh, long long v_sb, long long v_st,
                                       long long v_sh, int causal, int window, int q_offset,
                                       float scale, float softcap, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (b < 1 || s_len < 1 || t_len < 1 || kv_heads < 1 || h % kv_heads || q_offset < 0 ||
       b > 65535 || h > 65535)
     return (int)cudaErrorInvalidValue;
+  const Call c{q, k, v, out, b, s_len, t_len, h, kv_heads, q_sb, q_ss, q_sh, k_sb, k_st, k_sh,
+               v_sb, v_st, v_sh, causal, window, q_offset, scale, softcap,
+               static_cast<cudaStream_t>(stream)};
   int rc;
-  if (dtype == 0)
-    rc = dispatch_d<float>(d, q, k, v, out, b, s_len, t_len, h, kv_heads, q_sb, q_ss, q_sh,
-                           k_sb, k_st, k_sh, v_sb, v_st, v_sh, causal, window, q_offset,
-                           scale, softcap, st);
-  else if (dtype == 1)
-    rc = dispatch_d<__nv_bfloat16>(d, q, k, v, out, b, s_len, t_len, h, kv_heads, q_sb,
-                                   q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, causal,
-                                   window, q_offset, scale, softcap, st);
-  else
-    rc = (int)cudaErrorInvalidValue;
+  switch (d) {
+    case 16: rc = launch<16>(design, c); break;
+    case 32: rc = launch<32>(design, c); break;
+    case 64: rc = launch<64>(design, c); break;
+    case 128: rc = launch<128>(design, c); break;
+    case 256: rc = launch<256>(design, c); break;
+    default: rc = (int)cudaErrorInvalidValue;
+  }
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }

@@ -13,6 +13,7 @@ import torch
 from repro.kernels.flash_attention import flash_attention as jflash
 from repro.models import layers as jlayers
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref, ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_bf16p_ref
 from repro_torch.models import layers
 
 # the 5 cases of tests/test_kernels.py::test_flash_attention_sweep
@@ -118,6 +119,78 @@ def test_wrapper_runs_the_plain_version_on_cpu_and_checks_inputs():
         flash_attention(q, k, v, window=0)
     with pytest.raises(ValueError, match="q_offset"):
         flash_attention(q, k, v, q_offset=-1)
+
+
+# -- the bf16 kernels' own arithmetic, and the route -----------------------------------
+
+# K2_BF16_NORM of chip_smoke.py: a bf16 design's ||out - bf16p|| / ||bf16p|| on the card
+BF16_NORM = 5e-4
+
+
+@pytest.mark.parametrize("block_k", [64, 128])
+@pytest.mark.parametrize("B,S,T,H,K,D,causal,window,softcap", SWEEP)
+def test_bf16p_ref_without_rounding_is_the_jax_reference(B, S, T, H, K, D, causal, window,
+                                                         softcap, block_k):
+    """With P left unrounded the tiled online softmax is exact attention."""
+    (jq, jk, jv), (q, k, v) = _inputs([(B, S, H, D), (B, T, K, D), (B, T, K, D)], "float32", 7)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out = flash_attention_bf16p_ref(q, k, v, block_k=block_k, round_p=False, **kw)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    _close(out, jflash(jq, jk, jv, **kw, impl="ref"), 1e-5)
+
+
+@pytest.mark.parametrize("block_k", [64, 128])
+@pytest.mark.parametrize("B,S,T,H,K,D,causal,window,softcap", SWEEP)
+def test_bf16p_ref_with_rounding_stays_in_the_bf16_hold(B, S, T, H, K, D, causal, window,
+                                                        softcap, block_k):
+    """P rounded to bf16 moves the output by far less than the kernels' 2e-2
+    hold, against the JAX reference and the plain version alike."""
+    (jq, jk, jv), (q, k, v) = _inputs([(B, S, H, D), (B, T, K, D), (B, T, K, D)], "bfloat16", 8)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out = flash_attention_bf16p_ref(q, k, v, block_k=block_k, **kw)
+    assert out.dtype == torch.bfloat16
+    _close(out, jflash(jq, jk, jv, **kw, impl="ref"), 2e-2)
+    _close(out, flash_attention_ref(q, k, v, **kw), 2e-2)
+
+
+def test_bf16p_norm_hold_parts_the_plain_version_and_a_dropped_key_tile():
+    """The tight norm hold parts the kernels' arithmetic from P kept in fp32
+    (the plain version) and from a sum that leaves one 64-key tile out."""
+    _, (q, k, v) = _inputs([(1, 256, 4, 64), (1, 2048, 2, 64), (1, 2048, 2, 64)], "bfloat16", 9)
+    tight = flash_attention_bf16p_ref(q, k, v, block_k=64, causal=False).float()
+
+    def rel(x):
+        return ((x.float() - tight).norm() / tight.norm()).item()
+    assert rel(flash_attention_ref(q, k, v, causal=False)) > 2 * BF16_NORM
+    keep = torch.cat([torch.arange(0, 1024), torch.arange(1088, 2048)])
+    dropped = flash_attention_bf16p_ref(q, k[:, keep], v[:, keep], block_k=64, causal=False)
+    assert rel(dropped) > 10 * BF16_NORM
+
+
+@pytest.mark.parametrize("D", ops.HEAD_DIMS)
+def test_route_picks_the_documented_design(D):
+    assert ops.route(torch.float32, D) == "fma"
+    assert ops.route(torch.bfloat16, D) == ("wgmma" if D in (64, 128, 256) else "mma")
+    assert ops.block_k("mma", D) == ops.block_k("fma", D) == 64
+    if D in ops.WGMMA_HEAD_DIMS:
+        assert ops.block_k("wgmma", D) == (64 if D == 256 else 128)
+
+
+def test_launch_takes_only_the_calls_its_design_takes():
+    _, (q, k, v) = _inputs([(1, 64, 4, 32), (1, 64, 2, 32), (1, 64, 2, 32)], "float32", 10)
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    for design, args in (("wgmma", (qb, kb, vb)), ("mma", (q, k, v)), ("fma", (qb, kb, vb)),
+                         ("sdpa", (q, k, v))):
+        with pytest.raises(ValueError, match="does not take"):
+            ops._launch(design, *args)
+    # a design that takes the call still runs only on CUDA tensors: no CPU fallback
+    before = ops.launches
+    for design, args in (("fma", (q, k, v)), ("mma", (qb, kb, vb))):
+        with pytest.raises(ValueError, match="run on cuda"):
+            ops._launch(design, *args)
+    assert ops.launches == before
+    with pytest.raises(ValueError, match="head dim"):
+        ops._launch("mma", qb[..., :24], kb[..., :24], vb[..., :24])
 
 
 # -- layers.attention ----------------------------------------------------------------

@@ -1,8 +1,8 @@
 """The port's import rule and device rule.
 
 ``repro_torch`` (every module of it), ``chip_smoke.py`` and
-``tools/rwkv6_drift.py`` and ``tools/k3_route_sweep.py`` import neither jax nor any
-module of the JAX package
+``tools/rwkv6_drift.py``, ``tools/k3_route_sweep.py`` and ``tools/k2_designs.py`` import
+neither jax nor any module of the JAX package
 ``repro``; entry points given no device
 run on CUDA and raise where there is none.
 """
@@ -66,7 +66,8 @@ def _imported_roots(path: Path) -> set[str]:
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                                                ROOT / "tools" / "rwkv6_drift.py",
-                                                               ROOT / "tools" / "k3_route_sweep.py"],
+                                                               ROOT / "tools" / "k3_route_sweep.py",
+                                                               ROOT / "tools" / "k2_designs.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_neither_jax_nor_repro(path):
     assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}
