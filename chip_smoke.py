@@ -13,9 +13,11 @@ card's name and power limit as nvidia-smi gives them on a line of its own):
   build           nvcc of every kernel, all started together (process set-up,
                   apart from cold starts), with ptxas's register/spill lines
   kernel          decode_attention (K1) against its plain torch version at
-                  gemma3-4b's and deepseek-moe-16b's decode shapes; its time,
-                  the plain time, SDPA's time and the least time the card
-                  could take for the same work, at gemma3-4b's shape
+                  gemma3-4b's and deepseek-moe-16b's decode shapes; its
+                  registers and spills; its time, the plain time, SDPA's time
+                  and the least time the card could take for the same work,
+                  at gemma3-4b's shape, at the full cache and at two serving
+                  positions
   kernel.moe_gemm the grouped expert FFN (K3) against its plain version in
                   every design (the route each shape takes is printed; bf16
                   shapes with C <= 16 also through the other design), and
@@ -43,8 +45,10 @@ card's name and power limit as nvidia-smi gives them on a line of its own):
                   the wkv scan (K4) against its plain version in f32 and bf16
                   over the sweep of tests/test_kernels.py, the hard decay
                   (logw = -8), a T no chunk divides, a non-zero input state
-                  and rwkv6-3b's prefill shape; there its time, the plain
-                  time and the bound (no single PyTorch call computes it)
+                  and rwkv6-3b's prefill shape; its kernels' registers and
+                  spills; at that shape its time per call and per pass, the
+                  plain time and the bound (no single PyTorch call computes
+                  it)
   model           one full-width replica (bf16) per arch: gemma3-4b,
                   deepseek-moe-16b, deepseek-v2-lite-16b (MLA), rwkv6-3b: parameter
                   count, bytes, cold start, decode-step time, kernel launches
@@ -103,6 +107,10 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # the _tol of tests/test_ker
 K1_GEMMA = (2, 2048, 8, 4, 256)
 K1_MOE = (2, 2048, 16, 16, 128)
 MAX_SLOTS, MAX_SEQ = 2, 2048
+# a bf16 K1 call against the exact (float64) attention of its bf16 inputs, element by element:
+# rtol bf16's unit roundoff 2^-8 (the output is rounded once), atol the fp32 arithmetic's
+# error (the f32 calls read <= 1.5e-7 against the plain version at both shapes)
+K1_BF16X_TOL = (1e-6, 2.0 ** -8)
 # K3's decode call in deepseek-moe-16b and deepseek-v2-lite: (E, C, d, f)
 K3_DECODE = (64, 8, 2048, 1408)
 # and its prefill call at B 2, S 2048: one group of 4096 tokens, C = _capacity = 480
@@ -246,6 +254,18 @@ def ptxas_usage(log: str, name: str) -> list[dict]:
     return out
 
 
+def ptxas_phase(ops, lib: str, name: str, label: str) -> list[dict]:
+    """Print the registers and spills ptxas reported for every kernel of library ``lib``
+    whose name holds ``name`` (one line each, phase ``label``) -> the readings."""
+    log = ops.build.library_path(lib, ops.SOURCES).with_suffix(".log").read_text()
+    usage = ptxas_usage(log, name)
+    for u in usage:
+        phase(label, **u)
+    if not usage:
+        raise AssertionError(f"the build log of {lib} names no {name}")
+    return usage
+
+
 def free_cuda() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -297,9 +317,11 @@ def build_phase(kernels: dict) -> None:
               ptxas=repr(" | ".join(usage[:12])))
 
 
-def k1_checks(ops, ref_fn, shape, gen) -> float:
+def k1_checks(ops, ref_fn, exact_fn, shape, gen, tight: dict) -> float:
     """decode_attention against its plain version at one shape: f32 and bf16,
-    softcap off and on, pos at 0, T-1 and random; garbage past pos."""
+    softcap off and on, pos at 0, T-1 and random; garbage past pos.  Each bf16
+    call, and its plain version beside it, also against the exact attention
+    (exact_fn, float64) at K1_BF16X_TOL; the largest readings go into tight."""
     b, t, h, kh, d = shape
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
@@ -319,8 +341,21 @@ def k1_checks(ops, ref_fn, shape, gen) -> float:
                 torch.testing.assert_close(out.float(), exp.float(), atol=TOL[dtype],
                                            rtol=TOL[dtype])
                 worst = max(worst, err)
+                exact = {}
+                if dtype == torch.bfloat16:
+                    x = exact_fn(q, k, v, p, softcap=softcap)
+                    exact = {"kernel": tight_reading(out, x, K1_BF16X_TOL, "bf16x"),
+                             "plain": tight_reading(exp, x, K1_BF16X_TOL, "bf16x")}
+                    for who, reading in exact.items():
+                        for key, val in reading.items():
+                            tight[who][key] = max(tight[who].get(key, 0.0), val)
                 phase("kernel.check", shape=shape, dtype=str(dtype).split(".")[1],
-                      softcap=softcap, pos=pos, max_abs_err=f"{err:.3g}", tol=TOL[dtype])
+                      softcap=softcap, pos=pos, max_abs_err=f"{err:.3g}", tol=TOL[dtype],
+                      **{f"exact_{who}": {key: f"{val:.4g}" for key, val in reading.items()}
+                         for who, reading in exact.items()})
+                if exact and exact["kernel"]["bf16x_tol_share"] > 1.0:
+                    raise AssertionError(f"bf16 K1 {shape} softcap={softcap} pos={pos} is "
+                                         f"off the exact attention at {K1_BF16X_TOL}: {exact}")
         # garbage past pos leaves the output unchanged (keys past pos are never read)
         p = torch.tensor([40, 90], dtype=torch.int32, device=DEVICE)
         base = ops.decode_attention(q, k, v, p)
@@ -335,11 +370,18 @@ def k1_checks(ops, ref_fn, shape, gen) -> float:
     return worst
 
 
-def kernel_phase(ops, ref_fn) -> dict:
-    """decode_attention against its plain version at the main paths' shapes;
-    timed at gemma3-4b's."""
+def kernel_phase(ops, ref_fn, exact_fn) -> dict:
+    """decode_attention against its plain version at the main paths' shapes
+    (in bf16 also against the exact attention, exact_fn); its registers and
+    spills; timed at gemma3-4b's, at the full cache and at two serving
+    positions."""
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    worst = max(k1_checks(ops, ref_fn, K1_GEMMA, gen), k1_checks(ops, ref_fn, K1_MOE, gen))
+    usage = ptxas_phase(ops, "decode_attention", "decode_attn_cluster_kernel", "kernel.ptxas")
+    spills = max(u.get("spill_stores", 0) + u.get("spill_loads", 0) for u in usage)
+    tight: dict = {"kernel": {}, "plain": {}}
+    worst = max(k1_checks(ops, ref_fn, exact_fn, K1_GEMMA, gen, tight),
+                k1_checks(ops, ref_fn, exact_fn, K1_MOE, gen, tight))
+    phase("kernel.exact", tol=K1_BF16X_TOL, kernel=tight["kernel"], plain=tight["plain"])
 
     # time at the serving dtype (bf16), no softcap (gemma3), the full cache (pos = T-1)
     b, t, h, kh, d = K1_GEMMA
@@ -369,12 +411,14 @@ def kernel_phase(ops, ref_fn) -> dict:
             plain_ms=time_ms(lambda: ref_fn(q, k, v, p)),
             library_ms=time_ms(library), bound_ms=bound_ms, bound_by=bound_by)
         phase("kernel.time", pos=label, positions=pos, bytes=nbytes,
+              n_split=ops.n_split(b * kh, t, h // kh, d, dtype, q.device),
               kernel_us=f"{row['ms'] * 1e3:.3f}", plain_us=f"{row['plain_ms'] * 1e3:.3f}",
               library_us=f"{row['library_ms'] * 1e3:.3f}",
               bound_us=f"{row['bound_ms'] * 1e3:.4f}", bound_by=row["bound_by"],
               launches_so_far=ops.launches)
         out[label] = row
-    return dict(out["full"], max_abs_err=worst)
+    return dict(out["full"], serving=out["serving"], max_abs_err=worst, bf16x=tight,
+                ptxas_max_registers=max(u["registers"] for u in usage), ptxas_max_spill=spills)
 
 
 def tight_reading(out, tight, tol, tag: str) -> dict:
@@ -776,12 +820,34 @@ def rwkv6_scan_work(shape, es: int, with_state: bool) -> tuple[int, int]:
     return nbytes, -(-t // c) * b * h * (4 * c * c * d + 4 * c * d * d)
 
 
+def stage_us(fn, names, reps: int = 20) -> dict:
+    """Median device time (us) of each kernel whose name holds one of ``names``,
+    over reps calls of fn under the profiler, the L2 flushed before each."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=DEVICE)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    out = {}
+    for name in names:
+        times = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == cuda and name in e.name]
+        out[name] = round(statistics.median(times), 3) if times else None
+    return out
+
+
 def rwkv6_scan_phase(ops, ref_fn) -> dict:
     """rwkv6_scan against its plain version over K4_SHAPES in f32 and bf16, from
-    a non-zero state at K4_STATE, and at the hard decay; timed at rwkv6-3b's
-    prefill call as layer_prefill makes it (bf16 r, k, v; the cache's zeroed
-    state as s0)."""
+    a non-zero state at K4_STATE, and at the hard decay; its kernels' registers
+    and spills; timed per call and per pass at rwkv6-3b's prefill call as
+    layer_prefill makes it (bf16 r, k, v; the cache's zeroed state as s0)."""
     gen = torch.Generator(device=DEVICE).manual_seed(3)
+    usage = ptxas_phase(ops, "rwkv6_scan", "rwkv6_seg_", "kernel.rwkv6_scan.ptxas")
     cases = [(shape, dtype, False, False) for shape in K4_SHAPES
              for dtype in (torch.float32, torch.bfloat16)]
     cases += [(shape, torch.bfloat16, True, False) for shape in K4_STATE]
@@ -815,8 +881,15 @@ def rwkv6_scan_phase(ops, ref_fn) -> dict:
     bound_ms, bound_by = bound(nbytes, nops, dtype)
     row = dict(ms=time_ms(lambda: ops.rwkv6_scan(r, k, v, lw, u, s0), iters=20),
                plain_ms=time_ms(lambda: ref_fn(r, k, v, lw, u, s0), iters=5),
-               library_ms=None, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst)
+               library_ms=None, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst,
+               segment=ops.SEGMENT,
+               stage_us=stage_us(lambda: ops.rwkv6_scan(r, k, v, lw, u, s0),
+                                 KERNEL_NAMES["rwkv6_scan"]),
+               ptxas_max_registers=max(x["registers"] for x in usage),
+               ptxas_max_spill=max(x.get("spill_stores", 0) + x.get("spill_loads", 0)
+                                   for x in usage))
     phase("kernel.rwkv6_scan.time", shape=K4_MODEL, dtype="bfloat16", bytes=nbytes, ops=nops,
+          segment=ops.SEGMENT, stage_us=row["stage_us"],
           kernel_us=f"{row['ms'] * 1e3:.3f}", plain_us=f"{row['plain_ms'] * 1e3:.3f}",
           library="none (no single PyTorch call computes the wkv recurrence)",
           bound_us=f"{row['bound_ms'] * 1e3:.4f}", bound_by=bound_by,
@@ -851,12 +924,15 @@ def per_prefill_launches(cfg, stack, moe, tokens: int) -> dict:
             "rwkv6_scan": cfg.num_layers if ssm else 0}
 
 
-KERNEL_NAMES = {"decode_attention": ("decode_split_kernel", "decode_combine_kernel"),
+KERNEL_NAMES = {"decode_attention": ("decode_attn_cluster_kernel",),
                 "flash_attention": ("fa_fwd_",),
                 # moe_up_{fma,stream,wgmma}_kernel runs once a call in every design; then
                 # moe_down_{fma,stream,wgmma}_kernel and the stream's moe_occupancy_kernel
                 "moe_gemm": ("moe_up_", "moe_down_", "moe_occupancy_"),
-                "rwkv6_scan": ("rwkv6_scan_kernel",)}
+                # the output pass runs once a call; the local-state and boundary passes when
+                # T exceeds a segment
+                "rwkv6_scan": ("rwkv6_seg_out_kernel", "rwkv6_seg_local_kernel",
+                               "rwkv6_seg_pass_kernel")}
 
 
 def kernel_summary(kern, spans, reps: int) -> dict:
@@ -1358,6 +1434,7 @@ def main() -> int:
     from repro_torch.core.policies import make_policy
     from repro_torch.kernels.decode_attention import decode_attention_ref
     from repro_torch.kernels.decode_attention import ops as k1_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_f64_ref
     from repro_torch.kernels.flash_attention import flash_attention_ref
     from repro_torch.kernels.flash_attention import ops as k2_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_bf16p_ref, visible
@@ -1396,7 +1473,7 @@ def main() -> int:
     serve_args = (kernels, stack, ControlPlane, TorchWorkerBackend, make_policy, ServeRequest)
     timed("env", env_phase)
     timed("build", build_phase, kernels)
-    k1 = timed("kernel", kernel_phase, k1_ops, decode_attention_ref)
+    k1 = timed("kernel", kernel_phase, k1_ops, decode_attention_ref, decode_attention_f64_ref)
     k3 = timed("kernel.moe_gemm", moe_gemm_phase, k3_ops, moe_expert_ffn_ref,
                moe_expert_ffn_bf16h_ref)
     k2 = timed("kernel.flash_attention", flash_attention_phase, k2_ops, flash_attention_ref,

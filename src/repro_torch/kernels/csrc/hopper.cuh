@@ -1,9 +1,11 @@
-// Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels (K2 flash_attention,
-// K3 moe_gemm): mbarriers, TMA tile loads, wgmma shared-memory descriptors and the wgmma
-// instructions themselves, and libcuda's cuTensorMapEncodeTiled looked up through the
-// runtime.  Every tile these kernels load is a TMA box of 64 bf16 columns (128 bytes) written
-// with the 128-byte swizzle (16-byte chunk j of row r at j ^ (r & 7)), at a 1024-byte aligned
-// address; the descriptors below describe exactly that layout.
+// Hopper (sm_90a) building blocks shared by the port's kernels (K1 decode_attention, K2
+// flash_attention, K3 moe_gemm, K4 rwkv6_scan): mbarriers, cp.async copies and TMA tile
+// loads, thread-block cluster barriers and stores into another block's shared memory, wgmma
+// shared-memory descriptors and the wgmma instructions themselves, and libcuda's
+// cuTensorMapEncodeTiled looked up through the runtime.  Every tile the TMA + wgmma kernels
+// (K2, K3) load is a TMA box of 64 bf16 columns (128 bytes) written with the 128-byte swizzle
+// (16-byte chunk j of row r at j ^ (r & 7)), at a 1024-byte aligned address; the descriptors
+// below describe exactly that layout.
 //
 // Included by the kernel sources with `#include "hopper.cuh"`; repro_torch.kernels.build
 // passes this directory to nvcc with -I and hashes it with the sources.
@@ -69,6 +71,74 @@ __device__ __forceinline__ bool mbar_wait_bounded(uint32_t bar, uint32_t parity)
     if (++spins == (1u << 26)) return false;
   } while (!done);
   return true;
+}
+
+// The wait for a phase completed by writes from other blocks of the cluster (st_async below):
+// acquire at cluster scope, so their data is visible once it returns.  Traps like mbar_wait.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  uint32_t done, spins = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (++spins == (1u << 26)) __trap();
+  } while (!done);
+}
+
+// ---- cp.async: 16 bytes a thread from global to shared memory, the first src_bytes of them
+// read and the rest zero-filled (src_bytes 0: sixteen zero bytes, nothing read) -------------
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+// an arrival on the mbarrier bar once all this thread's earlier cp.async copies have landed;
+// the barrier's count includes it (noinc)
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
+}
+
+// ---- thread-block clusters ----------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// every thread of every block of the cluster arrives; wait returns once all have arrived, with
+// what each did before its arrive (an mbarrier's initialisation) visible
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the address of the same shared-memory location in block `rank` of the cluster
+__device__ __forceinline__ uint32_t map_to_rank(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+// stores into another block's shared memory (addresses from map_to_rank), their bytes counted
+// on that block's mbarrier (also mapped), which completes its phase when all have landed
+__device__ __forceinline__ void st_async(uint32_t addr, float4 x, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n"
+      :: "r"(addr), "f"(x.x), "f"(x.y), "f"(x.z), "f"(x.w), "r"(bar) : "memory");
+}
+__device__ __forceinline__ void st_async(uint32_t addr, float2 x, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];\n"
+      :: "r"(addr), "f"(x.x), "f"(x.y), "r"(bar) : "memory");
 }
 
 // ---- TMA tile loads: the box at coordinates (c0 innermost, ...) into shared memory at dst,

@@ -5,7 +5,10 @@ strides; pos (B,) int32 on the same device.  Returns (B, 1, H, D) in q.dtype.
 
 A CPU tensor goes to the plain version (``ref.decode_attention_ref``); a
 CUDA tensor launches the kernel (built at first use, see
-``repro_torch.kernels.build``) or raises.  ``launches`` counts kernel calls.
+``repro_torch.kernels.build``) or raises.  One launch a call: the grid is
+``n_split`` blocks (one cluster) per (batch, kv head) row, fixed by the
+shapes, and each block takes its share of the row's pos + 1 keys on the
+device (``ref.split_ranges``).  ``launches`` counts kernel calls.
 """
 
 from __future__ import annotations
@@ -23,10 +26,11 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "decode_attention.cu",)
 HEAD_DIMS = (16, 32, 64, 128, 256)
-MAX_GROUP = 8                       # query heads per kv head (MAXG in the source)
+MAX_GROUP = 8                       # query heads per kv head
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SPLIT_ALIGN = 32                   # keys_per_split is a multiple of the tile
-MAX_SPLIT = 256                     # splits per row (MAX_SPLIT in the source)
+SPLIT_TILE = 16                     # a split's keys come in runs of this many (UNIT in the source)
+MAX_SPLIT = 16                      # splits of a row: the blocks of one cluster
+SMEM_LIMIT = 232448                 # dynamic shared memory a block may have (H100)
 
 #: number of kernel calls made by ``decode_attention`` (CUDA tensors only)
 launches = 0
@@ -38,9 +42,11 @@ def library() -> ctypes.CDLL:
     fn = lib.decode_attention_launch
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([p] * 7 + [i] * 6 + [ll] * 6 + [i, i]
+        fn.argtypes = ([p] * 5 + [i] * 6 + [ll] * 6 + [i]
                        + [ctypes.c_float, ctypes.c_float, p])
         fn.restype = ctypes.c_int
+        lib.decode_attention_smem_bytes.argtypes = [i] * 4
+        lib.decode_attention_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -69,6 +75,8 @@ def _check(q, k, v, pos, softcap) -> None:
         raise ValueError(f"softcap must be positive or None, got {softcap}")
     if not q.is_contiguous():
         raise ValueError("q must be contiguous")
+    if q.device.type == "cuda" and (q.data_ptr() % 16 or not pos.is_contiguous()):
+        raise ValueError("q must be 16-byte aligned and pos contiguous")
     if q.device.type == "cuda":
         es = q.element_size()
         for name, x in (("k", k), ("v", v)):
@@ -84,13 +92,17 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _split(rows: int, t: int, device: torch.device) -> tuple[int, int]:
-    """Split each row's keys so the grid has about two blocks per SM."""
-    sms = _sm_count(device)
-    want = min(MAX_SPLIT, max(1, -(-2 * sms // rows)))
-    keys = -(-t // want)
-    keys = -(-keys // _SPLIT_ALIGN) * _SPLIT_ALIGN
-    return -(-t // keys), keys
+@functools.lru_cache(maxsize=None)
+def n_split(rows: int, t: int, g: int, d: int, dtype: torch.dtype, device: torch.device) -> int:
+    """Splits of each (batch, kv head) row: about one block per SM over the rows, at most
+    MAX_SPLIT (a cluster), no more than the cache has runs of SPLIT_TILE keys, and few enough
+    that block 0's slots for the others' partials fit in shared memory.  From the shapes
+    only: which keys each split takes is decided on the device from pos."""
+    want = min(MAX_SPLIT, -(-_sm_count(device) // rows), -(-t // SPLIT_TILE))
+    smem = library().decode_attention_smem_bytes
+    while want > 1 and smem(_DTYPES[dtype], d, g, want) > SMEM_LIMIT:
+        want -= 1
+    return max(want, 1)
 
 
 def decode_attention(q, k, v, pos, *, softcap: Optional[float] = None):
@@ -104,17 +116,13 @@ def decode_attention(q, k, v, pos, *, softcap: Optional[float] = None):
     lib = library()
     b, _, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
-    g = h // kh
-    n_split, keys_per_split = _split(b * kh, t, q.device)
     out = torch.empty_like(q)
-    part_acc = torch.empty(b * kh * n_split * g * d, dtype=torch.float32, device=q.device)
-    part_ml = torch.empty(b * kh * n_split * g * 2, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        part_acc.data_ptr(), part_ml.data_ptr(), _DTYPES[q.dtype], b, t, h, kh, d,
+        _DTYPES[q.dtype], b, t, h, kh, d,
         k.stride(0), k.stride(1), k.stride(2), v.stride(0), v.stride(1), v.stride(2),
-        n_split, keys_per_split, 1.0 / math.sqrt(d),
+        n_split(b * kh, t, h // kh, d, q.dtype, q.device), 1.0 / math.sqrt(d),
         0.0 if softcap is None else float(softcap), stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {rc}")

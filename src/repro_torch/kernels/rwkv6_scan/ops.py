@@ -8,7 +8,11 @@ float32.
 
 A CPU tensor goes to the plain version (``ref.rwkv6_scan_ref``); a CUDA
 tensor launches the kernel (built at first use, see
-``repro_torch.kernels.build``) or raises.  ``launches`` counts kernel calls.
+``repro_torch.kernels.build``) or raises.  The kernel cuts the time axis into
+segments of ``SEGMENT`` tokens: their local end states, a scan over the
+segment boundaries from s0, then every segment's outputs from its incoming
+state (``ref.rwkv6_scan_segmented_ref``): three launches when T > SEGMENT,
+one otherwise.  ``launches`` counts calls.
 """
 
 from __future__ import annotations
@@ -19,11 +23,13 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+from repro_torch.kernels.rwkv6_scan.ref import CHUNK, rwkv6_scan_ref
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "rwkv6_scan.cu",)
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: tokens of a segment, a multiple of CHUNK: chosen on the H100 (PERF.md §6)
+SEGMENT = 256
 
 #: number of kernel calls made by ``rwkv6_scan`` (CUDA tensors only)
 launches = 0
@@ -35,7 +41,7 @@ def library() -> ctypes.CDLL:
     fn = lib.rwkv6_scan_launch
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p] * 8 + [i] * 5 + [ll] * 12 + [p]
+        fn.argtypes = [p] * 10 + [i] * 6 + [ll] * 12 + [p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -80,22 +86,40 @@ def _check(r, k, v, logw, u, s0) -> None:
 def rwkv6_scan(r, k, v, logw, u, s0=None):
     """r, k, v, logw: (B, T, H, D); u: (H, D); s0: (B, H, D, D) or None (zero)
     -> (y (B, T, H, D), S (B, H, D, D)), float32."""
-    global launches
     _check(r, k, v, logw, u, s0)
     if r.device.type == "cpu":
         return rwkv6_scan_ref(r, k, v, logw, u, s0)
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan runs on cpu or cuda, not {r.device}")
+    return _launch(r, k, v, logw, u, s0, SEGMENT)
+
+
+def _launch(r, k, v, logw, u, s0, segment: int):
+    """The kernel at a given segment length (a multiple of CHUNK), on checked CUDA
+    tensors; ``rwkv6_scan`` takes SEGMENT, the tools time others."""
+    global launches
+    if segment < CHUNK or segment % CHUNK:
+        raise ValueError(f"segment must be a positive multiple of {CHUNK}, got {segment}")
     lib = library()
     b, t, h, d = r.shape
+    n_seg = -(-t // segment)
+    if n_seg > 65535:
+        raise ValueError(f"T={t} makes {n_seg} segments of {segment}; at most 65535")
     y = torch.empty((b, t, h, d), dtype=torch.float32, device=r.device)
     s = torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
+    # the segments' local end states, then (in place) their incoming states; their decays
+    seg_state = seg_decay = None
+    if n_seg > 1:
+        seg_state = torch.empty((n_seg - 1, b, h, d, d), dtype=torch.float32, device=r.device)
+        seg_decay = torch.empty((n_seg - 1, b, h, d), dtype=torch.float32, device=r.device)
     strides = [x.stride(i) for x in (r, k, v, logw) for i in range(3)]
     stream = torch.cuda.current_stream(r.device).cuda_stream
     rc = lib.rwkv6_scan_launch(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
                                u.data_ptr(), None if s0 is None else s0.data_ptr(),
-                               y.data_ptr(), s.data_ptr(), _DTYPES[r.dtype], b, t, h, d,
-                               *strides, stream)
+                               y.data_ptr(), s.data_ptr(),
+                               None if seg_state is None else seg_state.data_ptr(),
+                               None if seg_decay is None else seg_decay.data_ptr(),
+                               _DTYPES[r.dtype], b, t, h, d, segment, *strides, stream)
     if rc != 0:
         raise RuntimeError(f"rwkv6_scan kernel launch failed: CUDA error {rc}")
     launches += 1

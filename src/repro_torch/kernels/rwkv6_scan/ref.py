@@ -16,7 +16,9 @@ Any T is exact: the tail past T is filled with logw = 0 and k = v = 0, so
 it adds nothing to S and decays nothing (the JAX package pads logw with
 -1e-4, which decays the returned S; ROADMAP Queue 3).  It is the CPU path
 of the wrapper and the version the CUDA kernel is held to on the card.
-``rwkv6_scan_step_ref`` is the per-token recurrence, for the tests.
+``rwkv6_scan_step_ref`` is the per-token recurrence, and
+``rwkv6_scan_segmented_ref`` the CUDA kernel's decomposition of the time axis,
+for the tests.
 """
 
 from __future__ import annotations
@@ -74,3 +76,28 @@ def rwkv6_scan_step_ref(r, k, v, logw, u, s0=None):
         ys.append(torch.einsum("bhd,bhdv->bhv", r[:, i], S + u[..., None] * kv))
         S = torch.exp(w[:, i])[..., None] * S + kv
     return torch.stack(ys, 1), S
+
+
+def rwkv6_scan_segmented_ref(r, k, v, logw, u, s0=None, seg: int = 256):
+    """The kernel's decomposition in plain torch, same layout and results as
+    ``rwkv6_scan_ref``: the time axis in segments of ``seg`` tokens (a multiple of
+    CHUNK); each segment but the last runs the chunk recurrence from a zero state
+    to its local end state S_loc(j), with its decay W_j = exp(sum of its logw);
+    S_in(0) = s0, S_in(j + 1) = diag(W_j) S_in(j) + S_loc(j); then each segment's
+    outputs from S_in(j), and the last segment's end state is the final S."""
+    if seg < CHUNK or seg % CHUNK:
+        raise ValueError(f"seg must be a positive multiple of {CHUNK}, got {seg}")
+    b, t, h, d = r.shape
+    bounds = [(j, min(j + seg, t)) for j in range(0, t, seg)]
+    s_in = (torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device) if s0 is None
+            else s0.float())
+    states = [s_in]
+    for lo, hi in bounds[:-1]:
+        _, s_loc = rwkv6_scan_ref(r[:, lo:hi], k[:, lo:hi], v[:, lo:hi], logw[:, lo:hi], u)
+        decay = torch.exp(logw[:, lo:hi].float().sum(1))                # (B, H, D)
+        states.append(decay[..., None] * states[-1] + s_loc)
+    ys = []
+    for (lo, hi), s_in in zip(bounds, states):
+        y, s = rwkv6_scan_ref(r[:, lo:hi], k[:, lo:hi], v[:, lo:hi], logw[:, lo:hi], u, s_in)
+        ys.append(y)
+    return torch.cat(ys, 1), s

@@ -9,6 +9,8 @@ import torch
 
 from repro.kernels.decode_attention import decode_attention as jax_decode_attention
 from repro_torch.kernels.decode_attention import decode_attention_ref, ops
+from repro_torch.kernels.decode_attention.ref import (decode_attention_f64_ref,
+                                                       decode_attention_split_ref, split_ranges)
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -85,3 +87,68 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         ops.decode_attention(q, k, v, pos.long())
     with pytest.raises(ValueError, match="softcap"):
         ops.decode_attention(q, k, v, pos, softcap=0.0)
+
+
+# the kernel's split over the live keys: pos at 0, a tile's last key, the next tile's first,
+# a random position and T - 1, one row each
+def _split_case(T, H, K, D, seed=1, tile=16):
+    q, k, v, _ = _inputs(5, T, H, K, D, seed=seed)
+    pos = np.array([0, tile - 1, tile, np.random.default_rng(seed).integers(1, T - 1), T - 1],
+                   np.int32)
+    return q, k, v, pos
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_split,softcap", [(1, None), (3, 50.0), (16, None)])
+def test_split_ref_matches_plain_and_jax(n_split, softcap, dtype):
+    arrs = _split_case(256, 4, 2, 64)
+    tq = _torch(arrs, dtype)
+    out = decode_attention_split_ref(*tq, n_split, 16, softcap=softcap)
+    assert out.dtype == tq[0].dtype and out.shape == tq[0].shape
+    np.testing.assert_allclose(out.float().numpy(),
+                               decode_attention_ref(*tq, softcap=softcap).float().numpy(),
+                               atol=_tol(dtype), rtol=_tol(dtype))
+    jd = DTYPES[dtype][0]
+    jq, jk, jv = (jnp.asarray(a, jd) for a in arrs[:3])
+    for kw in (dict(block_k=64, interpret=True), dict(impl="ref")):
+        ref = jax_decode_attention(jq, jk, jv, jnp.asarray(arrs[3]), softcap=softcap, **kw)
+        np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32),
+                                   atol=_tol(dtype), rtol=_tol(dtype))
+
+
+@pytest.mark.parametrize("T,n_split,tile", [(256, 1, 16), (256, 5, 16), (2048, 16, 16),
+                                            (100, 7, 16), (48, 3, 16), (300, 4, 32)])
+def test_split_ranges_cover_each_live_key_once(T, n_split, tile):
+    """Every key <= pos in exactly one split, none past pos; runs start on a tile; the
+    live splits come first."""
+    pos = torch.tensor([0, tile - 1, tile, tile + 1, T // 2, T - 2, T - 1, T + 5],
+                       dtype=torch.int32)
+    for p, ranges in zip(pos.tolist(), split_ranges(pos, T, n_split, tile)):
+        assert len(ranges) == n_split
+        live = min(p + 1, T)
+        seen = np.zeros(T, np.int64)
+        for begin, end in ranges:
+            seen[begin:end] += 1
+            assert begin % tile == 0 or begin == end
+        assert (seen[:live] == 1).all() and not seen[live:].any()
+        sizes = [end - begin for begin, end in ranges]
+        n_live = sum(s > 0 for s in sizes)
+        assert all(s > 0 for s in sizes[:n_live]) and not any(sizes[n_live:])
+
+
+@pytest.mark.parametrize("B,T,H,K,D,softcap", SWEEP)
+def test_f64_ref_is_the_exact_attention_a_bf16_call_rounds(B, T, H, K, D, softcap):
+    """decode_attention_f64_ref, which the card holds bf16 K1 calls to at (1e-6, 2^-8), is
+    the JAX attention in float64, and a bf16 output rounded once from fp32 (the plain
+    version's) lies within that tolerance of it."""
+    arrs = _inputs(B, T, H, K, D, seed=4)
+    q, k, v, pos = _torch(arrs, "bfloat16")
+    x = decode_attention_f64_ref(q, k, v, pos, softcap=softcap)
+    assert x.dtype == torch.float64 and x.shape == q.shape
+    jq, jk, jv = (jnp.asarray(t.float().numpy()) for t in (q, k, v))
+    ref = jax_decode_attention(jq, jk, jv, jnp.asarray(arrs[3]), softcap=softcap, impl="ref")
+    np.testing.assert_allclose(x.numpy(), np.asarray(ref, np.float64), atol=2e-5, rtol=2e-5)
+    out = decode_attention_ref(q, k, v, pos, softcap=softcap)
+    share = (out.double() - x).abs() / (1e-6 + 2.0 ** -8 * x.abs())
+    assert share.max().item() <= 1.0
+

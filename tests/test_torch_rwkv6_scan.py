@@ -14,6 +14,7 @@ from repro.kernels.rwkv6_scan import rwkv6_scan as jax_rwkv6_scan
 from repro.kernels.rwkv6_scan import rwkv6_scan_ref as jax_scan_oracle
 from repro.models import rwkv6 as jrwkv6
 from repro_torch.kernels.rwkv6_scan import ops, rwkv6_scan_ref, rwkv6_scan_step_ref
+from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_segmented_ref
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 # tests/test_kernels.py holds the Pallas kernel at (atol 2e-4, rtol 2e-3), hard decay at
@@ -187,3 +188,50 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         ops.rwkv6_scan(r, k, v, lw, u, torch.zeros((1, 2, 32, 32), dtype=torch.float64))
     with pytest.raises(ValueError, match="one device"):
         ops.rwkv6_scan(r, k, v, lw, u.to("meta"))
+
+
+# the kernel's segments: a short segment here, so that T reaches several of them cheaply
+SEG = 32
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("T", [1, 15, 37, SEG - 1, SEG, SEG + 1, 3 * SEG + 5])
+def test_segmented_ref_matches_plain_oracle_and_jax(T, with_state):
+    """The segment decomposition against the chunked plain version, the per-token
+    recurrence and JAX's oracle (y and S, from s0), and the Pallas kernel (interpret
+    mode: y, and S where no pad decays it and the state is zero)."""
+    B, H, D = 2, 3, 32
+    arrs = _inputs(B, T, H, D, seed=100 + T)
+    s0 = (np.random.default_rng(T).standard_normal((B, H, D, D)).astype(np.float32)
+          if with_state else None)
+    ts0 = None if s0 is None else torch.from_numpy(s0)
+    y, s = rwkv6_scan_segmented_ref(*_torch(arrs), ts0, seg=SEG)
+    assert y.shape == (B, T, H, D) and s.shape == (B, H, D, D)
+    for ry, rs in (rwkv6_scan_ref(*_torch(arrs), ts0), rwkv6_scan_step_ref(*_torch(arrs), ts0),
+                   _oracle(arrs, s0)):
+        _close(y, ry, **TOL)
+        _close(s, rs, **TOL)
+    if not with_state:
+        jy, js = jax_rwkv6_scan(*_jax(arrs), interpret=True)
+        _close(y, jy, **TOL)
+        if T % 16 == 0:
+            _close(s, js, **TOL)
+
+
+def test_segmented_ref_at_the_hard_decay():
+    """logw = -8 everywhere: each segment's decay underflows to 0, the right limit."""
+    arrs = _inputs(1, 3 * SEG + 5, 2, 32, hard=True)
+    s0 = torch.from_numpy(np.random.default_rng(9).standard_normal((1, 2, 32, 32))
+                          .astype(np.float32))
+    y, s = rwkv6_scan_segmented_ref(*_torch(arrs), s0, seg=SEG)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    for ry, rs in (rwkv6_scan_ref(*_torch(arrs), s0), _oracle(arrs, s0.numpy())):
+        _close(y, ry, **HARD_TOL)
+        _close(s, rs, **HARD_TOL)
+    jy, _ = jax_rwkv6_scan(*_jax(arrs), interpret=True)
+    _close(rwkv6_scan_segmented_ref(*_torch(arrs), seg=SEG)[0], jy, **HARD_TOL)
+
+
+def test_segmented_ref_rejects_a_segment_no_chunk_divides():
+    with pytest.raises(ValueError, match="multiple of 16"):
+        rwkv6_scan_segmented_ref(*_torch(_inputs(1, 20, 1, 16)), seg=24)

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.rwkv6_scan import ops, rwkv6_scan_ref, rwkv6_scan_step_ref
+from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_segmented_ref
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # tests/test_kernels.py's tolerances for the Pallas kernel: (atol, rtol)
@@ -123,3 +124,79 @@ def test_kernel_rejects_a_strided_head_dim_on_card():
     r, k, v, lw, u = _inputs(1, 16, 2, 32, "float32", "cuda")
     with pytest.raises(ValueError, match="unit stride over D"):
         ops.rwkv6_scan(r.transpose(2, 3).contiguous().transpose(2, 3), k, v, lw, u)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [1, ops.SEGMENT - 1, ops.SEGMENT, ops.SEGMENT + 1,
+                               3 * ops.SEGMENT + 5])
+def test_kernel_around_the_segment_length_on_card(T, dtype, with_state):
+    """T on either side of a segment's end and across several, from a zero or a non-zero
+    state: held to the plain version and to the segment decomposition's mirror."""
+    _need_cuda()
+    r, k, v, lw, u = _inputs(2, T, 4, 64, dtype, "cuda", seed=T)
+    s0 = (torch.randn((2, 4, 64, 64), generator=torch.Generator().manual_seed(T)).cuda()
+          if with_state else None)
+    y, s = ops.rwkv6_scan(r, k, v, lw, u, s0)
+    torch.cuda.synchronize()
+    for ey, es in (rwkv6_scan_ref(r, k, v, lw, u, s0),
+                   rwkv6_scan_segmented_ref(r, k, v, lw, u, s0, seg=ops.SEGMENT)):
+        _close(y, ey, TOL)
+        _close(s, es, TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segment", [16, 48, 128, 512])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_kernel_at_other_segment_lengths_on_card(segment, D):
+    """Every head dim at segments from one chunk up, T = 517 (no segment divides it)."""
+    _need_cuda()
+    r, k, v, lw, u = _inputs(1, 517, 2, D, "bfloat16", "cuda", seed=D + segment)
+    s0 = torch.randn((1, 2, D, D), generator=torch.Generator().manual_seed(D)).cuda()
+    y, s = ops._launch(r, k, v, lw, u, s0, segment)
+    torch.cuda.synchronize()
+    ey, es = rwkv6_scan_ref(r, k, v, lw, u, s0)
+    _close(y, ey, TOL)
+    _close(s, es, TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_hard_decay_across_segments_on_card(dtype):
+    """logw = -8 over 3 segments and a tail, from a non-zero state: each segment's decay
+    underflows to 0."""
+    _need_cuda()
+    T = 3 * ops.SEGMENT + 5
+    r, k, v, lw, u = _inputs(1, T, 2, 32, dtype, "cuda", hard=True)
+    s0 = torch.randn((1, 2, 32, 32), generator=torch.Generator().manual_seed(1)).cuda()
+    y, s = ops.rwkv6_scan(r, k, v, lw, u, s0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    ey, es = rwkv6_scan_ref(r, k, v, lw, u, s0)
+    _close(y, ey, HARD_TOL)
+    _close(s, es, HARD_TOL)
+
+
+@pytest.mark.cuda
+def test_kernel_through_the_model_strides_across_segments_on_card():
+    """r, k, v, logw as the model makes them (views of (B, T, H * D) projections) over
+    several segments, with the cache's state: equal to contiguous copies and to the plain
+    version."""
+    _need_cuda()
+    T, H, D = 2 * ops.SEGMENT + 24, 6, 64
+    r, k, v, lw, u = _inputs(2, T, H, D, "bfloat16", "cuda", seed=7)
+
+    def widen(x):
+        w = torch.zeros((2, T, H * D + 64), dtype=x.dtype, device=x.device)
+        w[..., :H * D] = x.reshape(2, T, H * D)
+        return w[..., :H * D].unflatten(-1, (H, D))
+    views = [widen(x) for x in (r, k, v, lw)]
+    s0 = torch.randn((2, H, D, D), generator=torch.Generator().manual_seed(2)).cuda()
+    y, s = ops.rwkv6_scan(*views, u, s0)
+    y2, s2 = ops.rwkv6_scan(r, k, v, lw, u, s0)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+    ey, es = rwkv6_scan_ref(r, k, v, lw, u, s0)
+    _close(y, ey, TOL)
+    _close(s, es, TOL)
