@@ -13,11 +13,11 @@ card's name and power limit as nvidia-smi gives them on a line of its own):
   build           nvcc of every kernel, all started together (process set-up,
                   apart from cold starts), with ptxas's register/spill lines
   kernel          decode_attention (K1) against its plain torch version at
-                  gemma3-4b's and deepseek-moe-16b's decode shapes; its
-                  registers and spills; its time, the plain time, SDPA's time
-                  and the least time the card could take for the same work,
-                  at gemma3-4b's shape, at the full cache and at two serving
-                  positions
+                  gemma3-4b's, deepseek-moe-16b's and hymba-1.5b's decode
+                  shapes; its registers and spills; its time, the plain time,
+                  SDPA's time and the least time the card could take for the
+                  same work, at gemma3-4b's and hymba-1.5b's shapes, at the
+                  full cache and at two serving positions
   kernel.moe_gemm the grouped expert FFN (K3) against its plain version in
                   every design (the route each shape takes is printed; bf16
                   shapes with C <= 16 also through the other design), and
@@ -38,9 +38,10 @@ card's name and power limit as nvidia-smi gives them on a line of its own):
                   running max) at tight tolerances; rows that see no key
                   exact 0; the wgmma kernels' registers and spills from the
                   build log (no spill allowed); at gemma3-4b's global and
-                  local and deepseek-moe-16b's prefill shapes both bf16
-                  designs' times in turns, the plain time, SDPA's time (and
-                  backend) and the bound; the host time of a call
+                  local, deepseek-moe-16b's and hymba-1.5b's global and local
+                  prefill shapes both bf16 designs' times in turns, the plain
+                  time, SDPA's time (and backend) and the bound; the host time
+                  of a call
   kernel.rwkv6_scan
                   the wkv scan (K4) against its plain version in f32 and bf16
                   over the sweep of tests/test_kernels.py, the hard decay
@@ -50,7 +51,8 @@ card's name and power limit as nvidia-smi gives them on a line of its own):
                   plain time and the bound (no single PyTorch call computes
                   it)
   model           one full-width replica (bf16) per arch: gemma3-4b,
-                  deepseek-moe-16b, deepseek-v2-lite-16b (MLA), rwkv6-3b: parameter
+                  deepseek-moe-16b, deepseek-v2-lite-16b (MLA), rwkv6-3b,
+                  hymba-1.5b, whisper-tiny: parameter
                   count, bytes, cold start, decode-step time, kernel launches
                   per step, a profiled decode step (device busy time against
                   host wall time); one step checked: each kernel call in it
@@ -59,10 +61,12 @@ card's name and power limit as nvidia-smi gives them on a line of its own):
                   kernels' place and with attn_impl="ref" (held on the dense
                   arch; reported, with routing flips, on the moe archs)
   serve           ControlPlane + TorchWorkerBackend over full-width replicas
-                  of gemma3-4b, then of deepseek-moe-16b, then of rwkv6-3b
-                  (more requests than slots: reused slots start from a
-                  zeroed recurrent state); each kernel's launch count must be
-                  its launches per step x the decode steps taken
+                  of gemma3-4b, then of deepseek-moe-16b, rwkv6-3b,
+                  hymba-1.5b and whisper-tiny (rwkv6-3b and hymba-1.5b with
+                  more requests than slots: reused slots start from a zeroed
+                  recurrent state, hymba's attention caches left as they
+                  are); each kernel's launch count must be its launches per
+                  step x the decode steps taken (whisper reaches none)
   prefill         registry.prefill at full width (bf16): gemma3-4b at B 2,
                   S 4096, then deepseek-moe-16b and deepseek-v2-lite-16b at
                   B 2, S 2048 (4096 tokens, one dispatch group), then
@@ -76,14 +80,21 @@ card's name and power limit as nvidia-smi gives them on a line of its own):
                   logits are reported (tools/rwkv6_drift.py measures why
                   they are no check at full depth); then the phase in
                   float32 at full width and 8 layers holds its logits and
-                  decode steps within 1e-3
+                  decode steps within 1e-3; hymba-1.5b at B 2, S 4096 (+ its
+                  128 meta tokens: K2 x 32 at S 4224) with 8 decode steps
+                  held to forward and the plain per-token selective_scan's
+                  share of the profiled prefill (device and host); whisper-
+                  tiny at B 2, S 440 (+ 8 decode steps: its 448-token text
+                  context) over 1500 random frame embeddings
 Then one JSON line of per-kernel numbers, and last the result line
 ``{"ok": true, "device": {...}}``.  Any failure ends the run non-zero.
 """
 
 from __future__ import annotations
 
+import bisect
 import contextlib
+import dataclasses
 import gc
 import json
 import statistics
@@ -107,6 +118,10 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # the _tol of tests/test_ker
 K1_GEMMA = (2, 2048, 8, 4, 256)
 K1_MOE = (2, 2048, 16, 16, 128)
 MAX_SLOTS, MAX_SEQ = 2, 2048
+# hymba-1.5b's 3 full-cache layers: G 5 at D 64, over max_seq + its 128 meta tokens; a
+# served token at pos runs at pos + 128
+HYMBA_META = 128
+K1_HYMBA = (2, MAX_SEQ + HYMBA_META, 25, 5, 64)
 # a bf16 K1 call against the exact (float64) attention of its bf16 inputs, element by element:
 # rtol bf16's unit roundoff 2^-8 (the output is rounded once), atol the fp32 arithmetic's
 # error (the f32 calls read <= 1.5e-7 against the plain version at both shapes)
@@ -145,8 +160,11 @@ K2_SHAPES = [
     (2, 2048, 2048, 16, 16, 128, True, None, None, 0),   # deepseek-moe-16b
     (1, 1000, 1000, 8, 4, 256, True, 100, None, 0),      # odd S
     (2, 64, 200, 4, 2, 64, True, None, None, 136),       # q_offset: a chunk after 136 keys
+    (2, 4224, 4224, 25, 5, 64, True, None, None, 0),     # hymba-1.5b global layer: S 4096
+    (2, 4224, 4224, 25, 5, 64, True, 1024, None, 0),     # + 128 meta tokens; local layer
 ]
 K2_GLOBAL, K2_LOCAL, K2_MOE = K2_SHAPES[5], K2_SHAPES[6], K2_SHAPES[7]
+K2_HYMBA_GLOBAL, K2_HYMBA_LOCAL = K2_SHAPES[10], K2_SHAPES[11]
 # K2's bf16 designs against their own arithmetic (ref.flash_attention_bf16p_ref at the
 # design's key tile: P rounded to bf16 at the tile's running max, float64 sums).  They differ
 # from it by the order of fp32 sums and the fp32 scores and exponent: one bf16 step of an
@@ -173,6 +191,12 @@ K4_HARD = (1, 64, 2, 32)              # tests/test_kernels.py::test_rwkv6_hard_d
 # fp32 whatever its inputs, computed in fp32 by both versions from the same inputs
 K4_TOL, K4_HARD_TOL = (2e-4, 2e-3), (1e-4, 1e-3)
 PREFILL_B, PREFILL_S_GEMMA, PREFILL_S_MOE, DECODE_AFTER = 2, 4096, 2048, 8
+# whisper-tiny's prompt: its decoder's 448-token text context less the decode steps
+PREFILL_S_WHISPER = 448 - DECODE_AFTER
+# the cache entries a family's reset_slot zeroes: every one (ssm), the Mamba state (hybrid)
+RECURRENT = {"ssm": "all", "hybrid": ("ssm_h", "conv")}
+# the profiler range around hymba's plain per-token scan in its profiled prefill
+SCAN_RANGE = "hymba.selective_scan"
 # relative bounds (max |diff| / max |logit|) of the dense arch's bf16 logits:
 # prefill with the kernels against attn_impl="ref", and decode after prefill
 # against one forward over all the tokens.  Both sides compute attention in
@@ -373,24 +397,33 @@ def k1_checks(ops, ref_fn, exact_fn, shape, gen, tight: dict) -> float:
 def kernel_phase(ops, ref_fn, exact_fn) -> dict:
     """decode_attention against its plain version at the main paths' shapes
     (in bf16 also against the exact attention, exact_fn); its registers and
-    spills; timed at gemma3-4b's, at the full cache and at two serving
-    positions."""
+    spills; timed at gemma3-4b's and hymba-1.5b's, at the full cache and at
+    two serving positions (hymba's offset by its meta tokens)."""
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     usage = ptxas_phase(ops, "decode_attention", "decode_attn_cluster_kernel", "kernel.ptxas")
     spills = max(u.get("spill_stores", 0) + u.get("spill_loads", 0) for u in usage)
     tight: dict = {"kernel": {}, "plain": {}}
-    worst = max(k1_checks(ops, ref_fn, exact_fn, K1_GEMMA, gen, tight),
-                k1_checks(ops, ref_fn, exact_fn, K1_MOE, gen, tight))
+    worst = max(k1_checks(ops, ref_fn, exact_fn, shape, gen, tight)
+                for shape in (K1_GEMMA, K1_MOE, K1_HYMBA))
     phase("kernel.exact", tol=K1_BF16X_TOL, kernel=tight["kernel"], plain=tight["plain"])
+    gemma = k1_times(ops, ref_fn, K1_GEMMA, [200, 250], gen)
+    hymba = k1_times(ops, ref_fn, K1_HYMBA, [200 + HYMBA_META, 250 + HYMBA_META], gen)
+    return dict(gemma["full"], serving=gemma["serving"], hymba=hymba, max_abs_err=worst,
+                bf16x=tight, ptxas_max_registers=max(u["registers"] for u in usage),
+                ptxas_max_spill=spills)
 
-    # time at the serving dtype (bf16), no softcap (gemma3), the full cache (pos = T-1)
-    b, t, h, kh, d = K1_GEMMA
+
+def k1_times(ops, ref_fn, shape, serving: list, gen) -> dict:
+    """K1's time at one shape, at the serving dtype (bf16) without softcap, at the
+    full cache (pos = T-1) and at the serving positions: the kernel, the plain
+    version, SDPA with GQA and the bound -> {"full": row, "serving": row}."""
+    b, t, h, kh, d = shape
     dtype = torch.bfloat16
     q = torch.randn(b, 1, h, d, generator=gen, device=DEVICE).to(dtype)
     k = torch.randn(b, t, kh, d, generator=gen, device=DEVICE).to(dtype)
     v = torch.randn(b, t, kh, d, generator=gen, device=DEVICE).to(dtype)
     out = {}
-    for label, pos in (("full", [t - 1] * b), ("serving", [200, 250])):
+    for label, pos in (("full", [t - 1] * b), ("serving", serving)):
         p = torch.tensor(pos, dtype=torch.int32, device=DEVICE)
         mask = (torch.arange(t, device=DEVICE)[None, :] <= p[:, None].long())[:, None, None, :]
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -410,15 +443,14 @@ def kernel_phase(ops, ref_fn, exact_fn) -> dict:
             ms=time_ms(lambda: ops.decode_attention(q, k, v, p)),
             plain_ms=time_ms(lambda: ref_fn(q, k, v, p)),
             library_ms=time_ms(library), bound_ms=bound_ms, bound_by=bound_by)
-        phase("kernel.time", pos=label, positions=pos, bytes=nbytes,
+        phase("kernel.time", shape=shape, pos=label, positions=pos, bytes=nbytes,
               n_split=ops.n_split(b * kh, t, h // kh, d, dtype, q.device),
               kernel_us=f"{row['ms'] * 1e3:.3f}", plain_us=f"{row['plain_ms'] * 1e3:.3f}",
               library_us=f"{row['library_ms'] * 1e3:.3f}",
               bound_us=f"{row['bound_ms'] * 1e3:.4f}", bound_by=row["bound_by"],
               launches_so_far=ops.launches)
         out[label] = row
-    return dict(out["full"], serving=out["serving"], max_abs_err=worst, bf16x=tight,
-                ptxas_max_registers=max(u["registers"] for u in usage), ptxas_max_spill=spills)
+    return out
 
 
 def tight_reading(out, tight, tol, tag: str) -> dict:
@@ -600,10 +632,27 @@ def fa_work(shape, es: int) -> tuple[int, int]:
     return (2 * b * s * h * d + 2 * b * t * kh * d) * es, 4 * d * pairs * b * h
 
 
-def device_kernels(fn, reps: int = 1):
+@dataclasses.dataclass
+class KernelStat:
+    """One device activity's launches in a profile, by name: the fields of the
+    profiler's key_averages() rows that the phases read (times in us)."""
+    key: str
+    count: int = 0
+    self_device_time_total: float = 0.0
+
+
+def device_kernels(fn, reps: int = 1, ranges: dict | None = None):
     """Run fn reps times under the profiler -> (host wall s per rep, the
-    profiler's CUDA kernel events averaged by name, and each launch's (name,
-    start, end) on the device in us; both empty if it saw none)."""
+    device activities (kernels, copies, fills) by name as KernelStat, and
+    each one's (name, start, end) on the device in us; both empty if it saw
+    none).  They are read from the profiler's raw events: its per-event
+    parse (``events()``, ``key_averages()``) took 139 s after a hymba
+    prefill of 135k one-token launches.  ``ranges`` maps the names of
+    record_function ranges that fn opens to dicts, filled per rep with the
+    range's calls, its host time, and its device time: the union of the
+    activities inside the device-side spans the profiler gives the range
+    (from the first to the last activity launched in it; one stream, so
+    nothing else runs there), in us."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
@@ -611,10 +660,33 @@ def device_kernels(fn, reps: int = 1):
             fn()
         torch.cuda.synchronize()
         wall = (time.monotonic() - t0) / reps
+    raw = prof.profiler.kineto_results.events()
     cuda = torch.autograd.DeviceType.CUDA
-    spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == cuda]
-    return wall, [e for e in prof.key_averages() if e.device_type == cuda], spans
+    dev = [e for e in raw if e.device_type() == cuda]
+    base = min((e.start_ns() for e in dev), default=0)
+
+    def us(e):
+        return e.name(), (e.start_ns() - base) / 1e3, (e.end_ns() - base) / 1e3
+    # a range's own device-side span is no activity
+    spans = [us(e) for e in dev if not e.is_user_annotation()]
+    kern: dict = {}
+    for name, start, end in spans:
+        stat = kern.setdefault(name, KernelStat(name))
+        stat.count += 1
+        stat.self_device_time_total += end - start
+    for name, out in (ranges or {}).items():
+        host = [e.duration_ns() for e in raw if e.name() == name and e.is_user_annotation()
+                and e.device_type() != cuda]
+        windows = sorted(us(e)[1:] for e in dev if e.name() == name and e.is_user_annotation())
+        starts = [w[0] for w in windows]
+        inside = []
+        for _, start, end in spans:
+            i = bisect.bisect_right(starts, start) - 1
+            if i >= 0 and start < windows[i][1]:
+                inside.append((start, min(end, windows[i][1])))
+        out.update(calls=len(host) / reps, host_us=sum(host) / 1e3 / reps,
+                   device_us=covered_us(inside) / reps)
+    return wall, list(kern.values()), spans
 
 
 def covered_us(spans) -> float:
@@ -661,10 +733,10 @@ def flash_attention_phase(ops, ref_fn, tight_fn, visible, build) -> dict:
     wgmma), each bf16 design also against its own arithmetic (tight_fn at the
     design's key tile) at K2_BF16P_TOL and K2_BF16_NORM; rows that see no key
     come out 0 in every design; the wgmma kernels' registers and spills, none
-    allowed; timed at gemma3-4b's global and local and deepseek-moe-16b's
-    prefill shapes (bf16), both bf16 designs in turns (mma, wgmma, wgmma,
-    mma), against the plain version, SDPA and the bound; the host time of a
-    call in each bf16 design."""
+    allowed; timed at gemma3-4b's global and local, deepseek-moe-16b's and
+    hymba-1.5b's global and local prefill shapes (bf16), both bf16 designs in
+    turns (mma, wgmma, wgmma, mma), against the plain version, SDPA and the
+    bound; the host time of a call in each bf16 design."""
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     log = build.library_path("flash_attention", ops.SOURCES).with_suffix(".log").read_text()
     usage = ptxas_usage(log, "fa_fwd_wgmma_kernel")
@@ -738,7 +810,8 @@ def flash_attention_phase(ops, ref_fn, tight_fn, visible, build) -> dict:
 
     dtype = torch.bfloat16
     rows = {}
-    for label, shape in (("global", K2_GLOBAL), ("local", K2_LOCAL), ("moe", K2_MOE)):
+    for label, shape in (("global", K2_GLOBAL), ("local", K2_LOCAL), ("moe", K2_MOE),
+                         ("hymba_global", K2_HYMBA_GLOBAL), ("hymba_local", K2_HYMBA_LOCAL)):
         b, s, t, h, kh, d, _, window = shape[:8]
         q, k, v = inputs(shape, dtype)
         # SDPA on its own (B, H, S, D) layout; the local layer's window as a
@@ -789,6 +862,7 @@ def flash_attention_phase(ops, ref_fn, tight_fn, visible, build) -> dict:
     phase("kernel.flash_attention.host", host_us_per_call=host,
           map_encoding_us=f"{host['wgmma'] - host['mma']:.3f}")
     return dict(rows["global"], local_layer=rows["local"], moe_layer=rows["moe"],
+                hymba_global_layer=rows["hymba_global"], hymba_local_layer=rows["hymba_local"],
                 bf16p_holds=holds, host_us_per_call=host)
 
 
@@ -903,9 +977,10 @@ def rwkv6_scan_phase(ops, ref_fn) -> dict:
 
 def per_step_launches(cfg, stack) -> dict:
     """Kernel launches one decode step makes: K1 on every full-cache MHA/GQA
-    layer (MLA and the ssm family make none), K3 once on every moe layer (one
-    dispatch group); rwkv6's one-token decode is plain torch."""
-    attn = cfg.family != "ssm" and not cfg.use_mla
+    layer (hymba's 3 among them; MLA, the ssm family and whisper make none), K3
+    once on every moe layer (one dispatch group); rwkv6's one-token decode and
+    hymba's Mamba branch are plain torch."""
+    attn = cfg.family not in ("ssm", "encdec") and not cfg.use_mla
     return {"decode_attention": sum(w is None for w in stack.layer_windows(cfg)) if attn else 0,
             "flash_attention": 0,
             "moe_gemm": sum(k == "moe" for k in stack.layer_kinds(cfg)),
@@ -914,12 +989,14 @@ def per_step_launches(cfg, stack) -> dict:
 
 def per_prefill_launches(cfg, stack, moe, tokens: int) -> dict:
     """Kernel launches one prefill (or forward) of ``tokens`` tokens makes: K2
-    on every MHA/GQA layer, local and global (MLA's is plain torch), K3 once
-    per dispatch group on every moe layer, K4 once on every rwkv6 layer."""
+    on every MHA/GQA layer, local and global (hymba's 32 among them; MLA's and
+    whisper's attention is plain torch), K3 once per dispatch group on every
+    moe layer, K4 once on every rwkv6 layer."""
     groups = tokens // min(moe.MOE_GROUP, tokens)
     ssm = cfg.family == "ssm"
+    plain_attn = cfg.use_mla or ssm or cfg.family == "encdec"
     return {"decode_attention": 0,
-            "flash_attention": 0 if cfg.use_mla or ssm else cfg.num_layers,
+            "flash_attention": 0 if plain_attn else cfg.num_layers,
             "moe_gemm": groups * sum(k == "moe" for k in stack.layer_kinds(cfg)),
             "rwkv6_scan": cfg.num_layers if ssm else 0}
 
@@ -1174,20 +1251,22 @@ def serve_phase(cfg, kernels: dict, stack, ControlPlane, TorchWorkerBackend, mak
                 max_new_tokens: int, max_replicas: int) -> dict:
     """Serve n_requests through ControlPlane; the launches of each kernel must
     be its launches per step x the decode steps taken.  Counts slot reuses
-    (a request placed in a slot an earlier request used) and, on the ssm
-    family, requires some and checks that each leaves the slot's recurrent
-    state all zero before the request's first step."""
+    (a request placed in a slot an earlier request used) and, on the families
+    with a recurrent state (ssm: every cache tensor; hybrid: ssm_h and conv),
+    requires some and checks that each leaves the slot's state all zero before
+    the request's first step."""
     from repro_torch.models import registry
     torch.cuda.reset_peak_memory_stats()
     placed: list = []
     reset = registry.reset_slot
+    recurrent = RECURRENT.get(cfg.family)
 
     def checked_reset(cfg_, cache, slot):
         reset(cfg_, cache, slot)
         placed.append((id(cache), slot))
-        if cfg_.family == "ssm" and torch.stack(
-                [t[slot].abs().max().float() for layer in cache for t in layer.values()]
-        ).max().item() != 0:
+        if recurrent and torch.stack(
+                [t[slot].abs().max().float() for layer in cache for name, t in layer.items()
+                 if recurrent == "all" or name in recurrent]).max().item() != 0:
             raise AssertionError(f"slot {slot} holds a non-zero state after its reset")
     backend = TorchWorkerBackend(cfg, max_slots=MAX_SLOTS, max_seq=MAX_SEQ, device=DEVICE)
     cp = ControlPlane(backend, lambda f: make_policy("sync", keepalive_s=30.0,
@@ -1229,7 +1308,7 @@ def serve_phase(cfg, kernels: dict, stack, ControlPlane, TorchWorkerBackend, mak
 
     if sorted(r.rid for r in cp.completed) != list(range(n_requests)):
         raise AssertionError("not every request was served")
-    if cfg.family == "ssm" and not reuses:
+    if recurrent and not reuses:
         raise AssertionError("no request was placed in a reused slot")
     for r in cp.completed:
         if len(r.output) != max_new_tokens or not all(0 <= x < cfg.vocab_size
@@ -1285,6 +1364,22 @@ def rel_max_err(a, b) -> float:
     return num / den
 
 
+@contextlib.contextmanager
+def annotated_scan():
+    """hymba.selective_scan run inside a profiler range named SCAN_RANGE."""
+    from repro_torch.models import hymba
+    scan = hymba.selective_scan
+
+    def call(*args):
+        with torch.profiler.record_function(SCAN_RANGE):
+            return scan(*args)
+    hymba.selective_scan = call
+    try:
+        yield
+    finally:
+        hymba.selective_scan = scan
+
+
 def prefill_phase(cfg, n_params: int, kernels: dict, plain: dict, registry, stack, *,
                   batch: int, seq: int, decode_steps: int, hold_logits: bool,
                   bound: float = PREFILL_VS_REF_BOUND, label: str = "") -> dict:
@@ -1296,7 +1391,9 @@ def prefill_phase(cfg, n_params: int, kernels: dict, plain: dict, registry, stac
     decode steps continue from the filled caches and are held within
     ``bound`` to one registry.forward over all the tokens.  Paths are named
     after ``label`` (default the arch).  Returns the launches of each path it
-    drove."""
+    drove.  whisper's prompt carries random frame embeddings from a seed (its
+    frontend is a stub); on hymba the plain selective_scan's share of the
+    profiled prefill is reported, on the device and on the host."""
     from repro_torch.models import moe
     label = label or cfg.name
     params = registry.init_params(cfg, device=DEVICE, seed=0)
@@ -1306,7 +1403,12 @@ def prefill_phase(cfg, n_params: int, kernels: dict, plain: dict, registry, stac
     rng = np.random.default_rng(2)
     toks = torch.tensor(rng.integers(0, cfg.vocab_size, (batch, seq + decode_steps)),
                         dtype=torch.int32, device=DEVICE)
-    prompt = {"tokens": toks[:, :seq]}
+    frames = {}
+    if cfg.family == "encdec":
+        gen = torch.Generator(device=DEVICE).manual_seed(2)
+        frames["enc_embeds"] = torch.randn((batch, cfg.encoder_seq, cfg.d_model),
+                                           generator=gen, device=DEVICE)
+    prompt = {"tokens": toks[:, :seq], **frames}
     cache = registry.init_cache(cfg, batch, seq + decode_steps, device=DEVICE)
     expect = per_prefill_launches(cfg, stack, moe, batch * seq)
     paths = {}
@@ -1327,7 +1429,10 @@ def prefill_phase(cfg, n_params: int, kernels: dict, plain: dict, registry, stac
                              f", expected {expect}")
     if logits.shape != (batch, seq, cfg.vocab_size) or not torch.isfinite(logits).all():
         raise AssertionError(f"prefill logits {tuple(logits.shape)} or not finite")
+    spent = {}                                 # wall seconds of the phase's parts
+    t0 = time.monotonic()
     call_err = hold_calls(calls, plain)
+    spent["hold_calls"] = time.monotonic() - t0
     n_calls = {name: sum(c[0] == name for c in calls) for name in kernels}
     # K3 on the model's own inputs, where its time differs from random ones'
     k3_model = k3_on_model_inputs(calls, kernels["moe_gemm"]) if n_calls["moe_gemm"] else None
@@ -1343,16 +1448,23 @@ def prefill_phase(cfg, n_params: int, kernels: dict, plain: dict, registry, stac
     wall = time.monotonic() - t0
     peak = torch.cuda.max_memory_allocated()
     zero_cache(cache)
-    prof_wall, kern, spans = device_kernels(lambda: registry.prefill(cfg, params, cache, prompt))
+    scan = {SCAN_RANGE: {}} if cfg.family == "hybrid" else {}
+    t0 = time.monotonic()
+    with annotated_scan() if scan else contextlib.nullcontext():
+        prof_wall, kern, spans = device_kernels(
+            lambda: registry.prefill(cfg, params, cache, prompt), ranges=scan)
     summ = kernel_summary(kern, spans, 1) if kern else None
+    spent["profile_and_parse"] = time.monotonic() - t0
 
     # the same prefill under attn_impl="ref" on a cache of its own
+    t0 = time.monotonic()
     routes_r = []
     ref_cache = registry.init_cache(cfg, batch, seq + decode_steps, device=DEVICE)
     with recorded_routes(moe, routes_r):
         ref_logits, _ = registry.prefill(cfg.replace(attn_impl="ref"), params, ref_cache,
                                          prompt)
     rel_ref = rel_max_err(logits, ref_logits)
+    spent["ref_prefill"] = time.monotonic() - t0
     flips = sum(int((a != b).any(-1).sum()) for a, b in zip(routes_k, routes_r))
     del ref_cache, logits, ref_logits
     free_cuda()
@@ -1381,6 +1493,13 @@ def prefill_phase(cfg, n_params: int, kernels: dict, plain: dict, registry, stac
                       kernels_per_prefill=summ["kernels"],
                       flash_attention=summ["flash_attention"], moe_gemm=summ["moe_gemm"],
                       rwkv6_scan=summ["rwkv6_scan"], top=repr(summ["top"]))
+        for name, r in scan.items():
+            # device_us 0 means the profiler tied no kernel to the range
+            fields[name] = dict(
+                calls=r["calls"], host_s=f"{r['host_us'] / 1e6:.4f}",
+                host_share_of_wall=f"{r['host_us'] / 1e6 / prof_wall:.4f}",
+                device_s=f"{r['device_us'] / 1e6:.4f}" if r["device_us"] else "not measured",
+                device_share_of_busy=f"{r['device_us'] / 1e6 / busy:.4f}")
 
     if decode_steps:
         # decode from the filled caches (K1 reads the full caches K2's prefill
@@ -1396,6 +1515,7 @@ def prefill_phase(cfg, n_params: int, kernels: dict, plain: dict, registry, stac
                 out.append(lg[:, 0])
             torch.cuda.synchronize()
             return torch.stack(out, 1)
+        t0 = time.monotonic()
         dec, paths[f"decode_after_prefill.{label}"] = counted(kernels, decode)
         per_step = per_step_launches(cfg, stack)
         want = {k: n * decode_steps for k, n in per_step.items()}
@@ -1403,12 +1523,13 @@ def prefill_phase(cfg, n_params: int, kernels: dict, plain: dict, registry, stac
             raise AssertionError(f"{decode_steps} decode steps after prefill launched "
                                  f"{paths[f'decode_after_prefill.{label}']}, expected {want}")
         (full, _), paths[f"forward.{label}"] = counted(
-            kernels, lambda: registry.forward(cfg, params, {"tokens": toks}))
+            kernels, lambda: registry.forward(cfg, params, {"tokens": toks, **frames}))
         want = per_prefill_launches(cfg, stack, moe, batch * (seq + decode_steps))
         if paths[f"forward.{label}"] != want:
             raise AssertionError(f"a forward of {cfg.name} launched "
                                  f"{paths[f'forward.{label}']}, expected {want}")
         rel_dec = rel_max_err(dec, full[:, seq:])
+        spent["decode_and_forward"] = time.monotonic() - t0
         del full
         fields.update(decode_steps=decode_steps,
                       decode_launches=paths[f"decode_after_prefill.{label}"],
@@ -1418,6 +1539,7 @@ def prefill_phase(cfg, n_params: int, kernels: dict, plain: dict, registry, stac
             phase("prefill", **fields)
             raise AssertionError(f"decode after prefill differs from forward by {rel_dec} "
                                  f"(relative), bound {bound}")
+    fields["phase_parts_s"] = {k: round(v, 2) for k, v in spent.items()}
     phase("prefill", **fields)
     del params, cache
     free_cuda()
@@ -1534,6 +1656,31 @@ def main() -> int:
                        decode_steps=DECODE_AFTER, hold_logits=True, bound=F32_LOGITS_BOUND,
                        label=label))
 
+    hymba = bf16("hymba-1.5b")
+    # K1 on the 3 full-cache layers of every decode step, at pos + 128
+    paths["model.hymba-1.5b"] = timed("model.hymba-1.5b", model_phase, hymba, 1_662_468_800,
+                                      3_432_007_040, *model_args)
+    # 2 x 3.4 GB resident; 10 requests on at most 2 replicas of 2 slots: slots are reused
+    paths["serve.hymba-1.5b"] = timed(
+        "serve.hymba-1.5b", serve_phase, hymba, *serve_args, n_requests=10,
+        prompt_lens=(32, 128), max_new_tokens=8, max_replicas=2)
+    # 32 K2 calls at S 4224 (the prompt and the 128 meta tokens), then 8 decode steps held
+    # to a forward over 4104 tokens
+    paths.update(timed("prefill.hymba-1.5b", prefill_phase, hymba, 1_662_468_800,
+                       *prefill_args, batch=PREFILL_B, seq=PREFILL_S_GEMMA,
+                       decode_steps=DECODE_AFTER, hold_logits=True))
+
+    whisper = bf16("whisper-tiny")
+    # plain torch throughout: no kernel launches on any of its paths
+    paths["model.whisper-tiny"] = timed("model.whisper-tiny", model_phase, whisper, 56_355_840,
+                                        156_309_504, *model_args)
+    paths["serve.whisper-tiny"] = timed(
+        "serve.whisper-tiny", serve_phase, whisper, *serve_args, n_requests=8,
+        prompt_lens=(64, 256), max_new_tokens=16, max_replicas=4)
+    paths.update(timed("prefill.whisper-tiny", prefill_phase, whisper, 56_355_840,
+                       *prefill_args, batch=PREFILL_B, seq=PREFILL_S_WHISPER,
+                       decode_steps=DECODE_AFTER, hold_logits=True))
+
     def per_path(name):
         return {p: n[name] for p, n in paths.items()}
     rows = [
@@ -1553,9 +1700,10 @@ def main() -> int:
     for r in rows:
         row = r.pop("row")
         launches = per_path(r["name"])
-        # the timed shape's numbers; the rest (K2's local and moe layers and
-        # its mma.sync design, K3's occupied decode and prefill calls, the
-        # tight holds' readings) ride along under their own keys
+        # the timed shape's numbers; the rest (K1 at hymba's shape, K2's local,
+        # moe and hymba layers and its mma.sync design, K3's occupied decode
+        # and prefill calls, the tight holds' readings) ride along under their
+        # own keys
         extra = {k: v for k, v in row.items() if k not in
                  ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         out.append(dict(r, launches=sum(launches.values()), launches_per_path=launches,

@@ -8,7 +8,7 @@ Family selects the model implementation in ``repro_torch.models``:
   hybrid  - Hymba (parallel attention + SSM heads)
   encdec  - Whisper (encoder-decoder, stub audio frontend)
   vlm     - InternVL2 (stub vision frontend + decoder LM)
-``dense``, ``vlm`` and ``moe`` are implemented so far; the registry raises for the others.
+Every family is implemented (``repro_torch.models.registry``).
 """
 
 from __future__ import annotations

@@ -7,7 +7,11 @@ Runs the REAL control plane (repro_torch.core.control_plane) over real torch
 model replicas (the arch's smoke config, bf16 params, the CUDA kernels:
 decode attention, and the expert FFN for ``--arch deepseek-moe-16b`` or
 ``deepseek-v2-lite-16b``; ``--arch rwkv6-3b`` serves the ssm family, whose
-one-token decode is plain torch); prints the paper's metrics for the run.  The device is
+one-token decode is plain torch; ``--arch hymba-1.5b`` the hybrid family,
+decode attention on its full-attention layers beside a plain Mamba branch;
+``--arch whisper-tiny`` the encoder-decoder family, plain torch against a
+zero cross-attention cache, as the JAX replica serves it); prints the paper's
+metrics for the run.  The device is
 CUDA unless ``--device`` names another (``--device cpu`` runs the plain
 torch path on the CPU).
 """

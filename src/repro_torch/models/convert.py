@@ -2,11 +2,14 @@
 
 ``params_from_jax(cfg, tree)`` takes the JAX parameter pytree after
 ``jax.tree.map(np.asarray, params)`` (nested dicts/lists of numpy arrays) and
-returns the port's ``{"head": ..., "layers": [...]}``.  The JAX tree stacks
-its layers by run (``stack.compute_runs``): ``tree["runs"][i][j]`` holds
-sub-layer j of run i, with a leading axis of ``run.count`` when the run
-repeats.  Layer order is run by run, repetition by repetition, sub-layer by
-sub-layer.  This module needs no jax: it reads numpy arrays only.
+returns the port's ``{"head": ..., "layers": [...]}`` (plus hymba's
+top-level ``"meta"``).  The JAX tree stacks its layers by run
+(``stack.compute_runs``): ``tree["runs"][i][j]`` holds sub-layer j of run i,
+with a leading axis of ``run.count`` when the run repeats.  Layer order is
+run by run, repetition by repetition, sub-layer by sub-layer.  Whisper's tree
+(``encdec``) has no runs: ``enc`` and ``dec`` each stack every layer on a
+leading axis, and become the port's ``"enc"`` and ``"dec"`` lists.  This
+module needs no jax: it reads numpy arrays only.
 """
 
 from __future__ import annotations
@@ -33,7 +36,17 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _unstack(tree, n: int, device) -> list:
+    """A tree whose leaves stack n layers on axis 0 -> n per-layer trees."""
+    return [_map(tree, lambda a, i=i: to_tensor(a[i], device)) for i in range(n)]
+
+
 def params_from_jax(cfg: ModelConfig, tree: dict, *, device="cpu") -> dict:
+    head = _map(tree["head"], lambda a: to_tensor(a, device))
+    if cfg.family == "encdec":
+        return {"head": head, "enc": _unstack(tree["enc"], cfg.num_encoder_layers, device),
+                "dec": _unstack(tree["dec"], cfg.num_layers, device),
+                "enc_norm": to_tensor(tree["enc_norm"], device)}
     runs = stack.compute_runs(cfg)
     if len(tree["runs"]) != len(runs):
         raise ValueError(f"tree has {len(tree['runs'])} runs, {cfg.name} at "
@@ -46,4 +59,7 @@ def params_from_jax(cfg: ModelConfig, tree: dict, *, device="cpu") -> dict:
                     layers.append(_map(sub, lambda a: to_tensor(a, device)))
                 else:
                     layers.append(_map(sub, lambda a, r=rep: to_tensor(a[r], device)))
-    return {"head": _map(tree["head"], lambda a: to_tensor(a, device)), "layers": layers}
+    out = {"head": head, "layers": layers}
+    if "meta" in tree:
+        out["meta"] = to_tensor(tree["meta"], device)
+    return out

@@ -2,7 +2,8 @@
 
 Counterpart of ``repro.models.layers``: init helpers, norms, RoPE, the
 memory-bounded reference ``attention()`` of the prefill/forward path and the
-decode pieces, and the SwiGLU MLP; the losses come with the training slice.
+decode pieces, sinusoidal positions (whisper), and the SwiGLU MLP; the losses
+come with the training slice.
 Parameter layouts are the JAX package's (e.g. ``wq`` is ``(d_model, H, D)``),
 so weights carry across unchanged.
 """
@@ -90,6 +91,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_pos(seq: int, dim: int, device=None) -> torch.Tensor:
+    """(seq, dim) float32 absolute positions: sin on even columns, cos on odd."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / dim))
+    pe = torch.zeros((seq, dim), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
 
 
 # ---------------------------------------------------------------------------

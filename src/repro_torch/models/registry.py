@@ -6,11 +6,12 @@ Every family module implements:
   init_cache(cfg, batch, seq_len, device=)
   prefill(cfg, params, cache, batch) -> (logits, cache)
   decode_step(cfg, params, cache, tokens, pos) -> (logits, cache)
-``dense`` and ``vlm`` (``models.transformer``), ``moe`` (with MHA or MLA
-attention) and ``ssm`` (``models.rwkv6``) are ported; the other families
-raise and name the ROADMAP item that brings them.  ``loss_fn`` and training
-come with the training slice.  ``reset_slot`` zeroes one serving slot's
-recurrent state, for the families that keep one (ssm).
+Every family of the JAX package's registry is ported: ``dense`` and ``vlm``
+(``models.transformer``), ``moe`` (with MHA or MLA attention), ``ssm``
+(``models.rwkv6``), ``hybrid`` (``models.hymba``) and ``encdec``
+(``models.whisper``).  ``loss_fn`` and training come with the training
+slice.  ``reset_slot`` zeroes one serving slot's recurrent state, for the
+families that keep one (ssm, hybrid).
 """
 
 from __future__ import annotations
@@ -20,12 +21,6 @@ import functools
 import torch
 
 from repro_torch.configs.base import ModelConfig
-
-_LATER = {
-    "hybrid": "ROADMAP Queue 1 item 9 (hymba)",
-    "encdec": "ROADMAP Queue 1 item 9 (whisper)",
-}
-
 
 def family_module(cfg: ModelConfig):
     if cfg.family in ("dense", "vlm"):
@@ -37,9 +32,12 @@ def family_module(cfg: ModelConfig):
     if cfg.family == "ssm":
         from repro_torch.models import rwkv6
         return rwkv6
-    if cfg.family in _LATER:
-        raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is not ported "
-                                  f"yet: see ROADMAP.md, {_LATER[cfg.family]}")
+    if cfg.family == "hybrid":
+        from repro_torch.models import hymba
+        return hymba
+    if cfg.family == "encdec":
+        from repro_torch.models import whisper
+        return whisper
     raise KeyError(f"unknown family {cfg.family!r}")
 
 
@@ -67,7 +65,9 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos):
 def reset_slot(cfg: ModelConfig, cache, slot: int) -> None:
     """Zero batch row ``slot`` of a recurrent cache in place, so that a request
     placed in a reused serving slot starts from a fresh state.  Attention
-    caches need nothing: positions at or past a slot's ``pos`` are masked."""
+    caches are left as they are: positions at or past a slot's ``pos`` are
+    masked (a hymba ring layer's slots of the meta positions aside, which a
+    served request attends and never writes, as in the JAX package)."""
     reset = getattr(family_module(cfg), "reset_slot", None)
     if reset is not None:
         reset(cache, slot)

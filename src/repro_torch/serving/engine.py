@@ -9,7 +9,8 @@ to ``max_slots`` requests at once via slot-based continuous batching: every
 first, then generating).
 
 Unlike the JAX replica, ``add`` zeroes the slot's rows of a recurrent cache
-(the ssm family's ``S``, ``tshift``, ``cshift``; ``registry.reset_slot``),
+(the ssm family's ``S``, ``tshift``, ``cshift``, the hybrid family's
+``ssm_h``, ``conv``; ``registry.reset_slot``),
 so a request placed in a reused slot starts from a fresh state; the JAX
 replica resets only the position, which masks a stale attention cache but
 not a recurrent one (ROADMAP Queue 3).  Attention caches are left as they are.

@@ -162,6 +162,31 @@ def test_kernel_with_pos_straddling_split_edges_on_card(K, G, D, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_at_hymba_full_cache_on_card(dtype):
+    """hymba-1.5b's full-cache layers as served: T = max_seq 2048 + 128 meta tokens,
+    (K 5, G 5, D 64), a token at pos runs at pos + 128 (so pos >= 128 always; the keys at
+    [0, 128) are the meta tokens' and count as live), against the plain version, the split
+    mirror and, in bf16, the exact attention; pos on both sides of split edges."""
+    _need_cuda()
+    T, K, G, D, M = 2048 + 128, 5, 5, 64, 128
+    q, k, v, _ = _inputs(2, T, K * G, K, D, dtype, "cuda", seed=8)
+    n = ops.n_split(2 * K, T, G, D, q.dtype, q.device)
+    ups = -(-(-(-T // ops.SPLIT_TILE)) // n)                  # runs a split at the full cache
+    edge = ups * ops.SPLIT_TILE
+    for p in ([M, M + 1], [M + 15, M + 16], [M + 200, M + 250], [edge - 1, edge],
+              [1023 + M, 2047 + M], [T - 1, M]):
+        pos = torch.tensor(p, dtype=torch.int32, device="cuda")
+        out = ops.decode_attention(q, k, v, pos)
+        torch.cuda.synchronize()
+        for ref in (decode_attention_ref(q, k, v, pos),
+                    decode_attention_split_ref(q, k, v, pos, n, ops.SPLIT_TILE)):
+            np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                                       atol=_tol(dtype), rtol=_tol(dtype), err_msg=f"pos {p}")
+        _holds_exact(out, q, k, v, pos, msg=f"pos {p}")
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("softcap", [None, 50.0])
 @pytest.mark.parametrize("K,G,D", MAIN_KGD[:2])
 def test_kernel_bf16_holds_exact_attention_on_card(K, G, D, softcap):

@@ -46,6 +46,8 @@ SHAPES = [
     (2, 48, 48, 4, 2, 16, True, 16, None, 0),            # smoke gemma3-4b local layer
     (1, 40, 40, 4, 4, 32, False, None, 20.0, 0),         # D = 32
     (1, 300, 300, 25, 5, 64, True, 128, None, 0),        # hymba-1.5b: G = 5, D = 64, window
+    (2, 4224, 4224, 25, 5, 64, True, 1024, None, 0),     # hymba-1.5b's local layer at full
+                                                         #   length: S 4096 + 128 meta tokens
     (1, 200, 333, 4, 2, 64, False, None, None, 0),       # T tails, no causal mask, each D
     (2, 130, 77, 4, 4, 128, False, None, None, 0),       #   of the wgmma design
     (1, 129, 203, 8, 4, 256, False, None, 30.0, 0),

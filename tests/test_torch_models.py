@@ -178,12 +178,11 @@ def test_param_count_matches_jax():
 
 
 def test_other_families_name_their_slice():
-    # the moe, vlm and ssm families are ported (tests/test_torch_moe.py,
-    # tests/test_torch_prefill.py, tests/test_torch_rwkv6.py)
-    assert registry.param_count(get_smoke_config("deepseek-moe-16b")) > 0
-    assert registry.param_count(get_smoke_config("internvl2-76b")) > 0
-    assert registry.param_count(get_smoke_config("rwkv6-3b")) > 0
-    with pytest.raises(NotImplementedError, match="hymba"):
-        registry.param_count(get_smoke_config("hymba-1.5b"))
-    with pytest.raises(NotImplementedError, match="whisper"):
-        registry.param_count(get_smoke_config("whisper-tiny"))
+    # every family is ported (tests/test_torch_moe.py, tests/test_torch_prefill.py,
+    # tests/test_torch_rwkv6.py, tests/test_torch_hymba.py, tests/test_torch_whisper.py);
+    # a family the registry does not know raises
+    for arch in ("deepseek-moe-16b", "internvl2-76b", "rwkv6-3b", "hymba-1.5b",
+                 "whisper-tiny"):
+        assert registry.param_count(get_smoke_config(arch)) > 0
+    with pytest.raises(KeyError, match="unknown family"):
+        registry.family_module(get_smoke_config("gemma3-4b").replace(family="retnet"))

@@ -10,6 +10,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_smoke_config as jax_smoke
 from repro.core import control_plane as jcp
@@ -29,6 +30,8 @@ MOE = "deepseek-moe-16b"
 MOE_CFG = get_smoke_config(MOE).replace(**BF16, attn_impl="kernel")
 RWKV = "rwkv6-3b"
 RWKV_CFG = get_smoke_config(RWKV).replace(**BF16, attn_impl="kernel")
+HYMBA = "hymba-1.5b"
+WHISPER = "whisper-tiny"
 
 POLICIES = {
     "sync": dict(keepalive_s=3.0, container_concurrency=2),
@@ -94,6 +97,15 @@ def test_rwkv6_replica_greedy_outputs_equal_jax():
     _greedy_outputs_equal_jax(RWKV)
 
 
+def test_hymba_replica_greedy_outputs_equal_jax():
+    _greedy_outputs_equal_jax(HYMBA)
+
+
+def test_whisper_replica_greedy_outputs_equal_jax():
+    """Served against the all-zero cross cache, as the JAX replica serves it."""
+    _greedy_outputs_equal_jax(WHISPER)
+
+
 def _greedy_outputs_equal_jax(arch):
     jcfg = jax_smoke(arch).replace(**F32)
     cfg = get_smoke_config(arch).replace(**F32, attn_impl="kernel")
@@ -126,6 +138,14 @@ def test_moe_replica_memory_bytes_equal_jax():
 def test_rwkv6_replica_memory_bytes_equal_jax():
     jrep = jengine.ModelReplica(jax_smoke(RWKV).replace(**BF16), max_slots=2, max_seq=48)
     rep = tengine.ModelReplica(RWKV_CFG, max_slots=2, max_seq=48, device="cpu")
+    assert rep.memory_bytes() == jrep.memory_bytes() > 0
+
+
+@pytest.mark.parametrize("arch", [HYMBA, WHISPER])
+def test_hybrid_and_encdec_replica_memory_bytes_equal_jax(arch):
+    jrep = jengine.ModelReplica(jax_smoke(arch).replace(**BF16), max_slots=2, max_seq=48)
+    rep = tengine.ModelReplica(get_smoke_config(arch).replace(**BF16, attn_impl="kernel"),
+                               max_slots=2, max_seq=48, device="cpu")
     assert rep.memory_bytes() == jrep.memory_bytes() > 0
 
 
@@ -180,6 +200,71 @@ def test_rwkv6_reused_slot_starts_from_a_fresh_state():
     fresh, f2 = [], reqs(tengine)[2]
     assert fresh_rep.add(f2, 0.0) and fresh_rep.slots[0] is f2
     logged(fresh_rep, 0, fresh)
+    while not f2.done:
+        fresh_rep.step(0.0)
+    assert len(reused) == len(fresh) == 3 + 4 - 1
+    for a, b in zip(reused, fresh):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-5)
+    assert r2.output == f2.output
+
+
+def test_hymba_reused_slot_starts_from_a_fresh_state():
+    """A request placed in a slot another request used: the JAX replica leaves
+    the old Mamba state (ssm_h, conv) there (ROADMAP Queue 3, pinned here); the
+    port's replica zeroes it and leaves the attention caches, so the request's
+    logits are those it gets on a fresh replica.  The first request stays short
+    of the smoke ring's wrap onto the meta positions' slots (W - M = 8 tokens;
+    tests/test_torch_hymba.py pins what a longer one leaves there)."""
+    jcfg = jax_smoke(HYMBA).replace(**F32)
+    cfg = get_smoke_config(HYMBA).replace(**F32, attn_impl="kernel")
+
+    def reqs(mod):
+        return [mod.ServeRequest(rid=0, fn=0, prompt=[3, 1, 4], max_new_tokens=2),
+                mod.ServeRequest(rid=1, fn=0, prompt=[15, 9, 2, 6], max_new_tokens=9),
+                mod.ServeRequest(rid=2, fn=0, prompt=[5, 3, 5], max_new_tokens=4)]
+
+    jrep = jengine.ModelReplica(jcfg, max_slots=2, max_seq=32, seed=7)
+    j0, j1, j2 = reqs(jengine)
+    assert jrep.add(j0, 0.0) and jrep.add(j1, 0.0)
+    while not j0.done:
+        jrep.step(0.0)
+    assert jrep.add(j2, 1.0) and jrep.slots[0] is j2
+    jlayer = jrep.cache[0][0]
+    assert np.abs(np.asarray(jlayer["conv"])[0]).max() > 1e-3
+    assert np.abs(np.asarray(jlayer["ssm_h"])[0]).max() > 1e-4
+
+    def logged(rep, into):
+        decode = rep._decode
+
+        def run(tokens, pos):
+            logits = decode(tokens, pos)
+            into.append(logits[0, 0].clone())
+            return logits
+        rep._decode = run
+
+    params = convert.params_from_jax(cfg, jax.tree.map(np.asarray, jrep.params))
+    rep = tengine.ModelReplica(cfg, max_slots=2, max_seq=32, seed=7, device="cpu")
+    rep.params = params
+    r0, r1, r2 = reqs(tengine)
+    assert rep.add(r0, 0.0) and rep.add(r1, 0.0)
+    while not r0.done:
+        rep.step(0.0)
+    attn_before = [{k: layer[k][0].clone() for k in ("k", "v")} for layer in rep.cache]
+    assert any(float(layer["ssm_h"][0].abs().max()) > 0 for layer in rep.cache)
+    reused = []
+    assert rep.add(r2, 1.0) and rep.slots[0] is r2
+    for layer, before in zip(rep.cache, attn_before):
+        assert float(layer["ssm_h"][0].abs().max()) == float(layer["conv"][0].abs().max()) == 0
+        assert all(torch.equal(layer[k][0], before[k]) for k in ("k", "v"))
+    logged(rep, reused)
+    while not r2.done:
+        rep.step(1.0)
+
+    fresh_rep = tengine.ModelReplica(cfg, max_slots=2, max_seq=32, seed=7, device="cpu")
+    fresh_rep.params = params
+    fresh, f2 = [], reqs(tengine)[2]
+    assert fresh_rep.add(f2, 0.0) and fresh_rep.slots[0] is f2
+    logged(fresh_rep, fresh)
     while not f2.done:
         fresh_rep.step(0.0)
     assert len(reused) == len(fresh) == 3 + 4 - 1
@@ -245,6 +330,14 @@ def test_serve_cli_on_cpu_moe():
 
 def test_serve_cli_on_cpu_rwkv6():
     _serve_cli_on_cpu(["--arch", RWKV])
+
+
+def test_serve_cli_on_cpu_hymba():
+    _serve_cli_on_cpu(["--arch", HYMBA])
+
+
+def test_serve_cli_on_cpu_whisper():
+    _serve_cli_on_cpu(["--arch", WHISPER])
 
 
 def _serve_cli_on_cpu(args):
