@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and prefill paths once on one NVIDIA GPU, and check them.
+"""Drive the PyTorch/CUDA port's serving, prefill and training paths once on one NVIDIA GPU, and check them.
 
     python3 chip_smoke.py
 
@@ -17,7 +17,8 @@ card's name and power limit as nvidia-smi gives them on a line of its own):
                   shapes; its registers and spills; its time, the plain time,
                   SDPA's time and the least time the card could take for the
                   same work, at gemma3-4b's and hymba-1.5b's shapes, at the
-                  full cache and at two serving positions
+                  full cache and at two serving positions, and at all three
+                  shapes at the decode profiles' positions (both slots at 45)
   kernel.moe_gemm the grouped expert FFN (K3) against its plain version in
                   every design (the route each shape takes is printed; bf16
                   shapes with C <= 16 also through the other design), and
@@ -86,6 +87,27 @@ card's name and power limit as nvidia-smi gives them on a line of its own):
                   share of the profiled prefill (device and host); whisper-
                   tiny at B 2, S 440 (+ 8 decode steps: its 448-token text
                   context) over 1500 random frame embeddings
+  train           gemma3-4b through train_step at full width and depth:
+                  float32 parameters and AdamW state, bf16 compute, every
+                  layer checkpointed, attn_impl="ref" (the kernels are
+                  forward only), B 1, S 4096, 4 optimizer steps: step 0's
+                  chunked loss held to the cross entropy of the full logits,
+                  losses and grad norms finite, the parameters moved by step
+                  1; step wall, tokens/s, peak memory, the optimizer's share
+                  of the step, and a fifth step under the profiler (device
+                  busy, idle share, top device ops)
+  train.family    every family's smoke config in float32, 3 steps at lr
+                  1e-4 on the card and 3 on the CPU from one CPU-made init:
+                  the first gradients and the final parameters within 1e-4
+                  of each leaf's largest entry, losses within rtol 1e-4; no
+                  kernel launched
+  train.restart   the dense smoke config: 4 steps against 2 steps, a
+                  checkpoint, a restore into fresh state and 2 more, bit for
+                  bit under torch.use_deterministic_algorithms
+  train.no_kernel_grad
+                  K1-K4 (K2, K3 and K4 also through _launch) raise on CUDA
+                  inputs that require grad and launch under no_grad; a
+                  training step under attn_impl="kernel" raises
 Then one JSON line of per-kernel numbers, and last the result line
 ``{"ok": true, "device": {...}}``.  Any failure ends the run non-zero.
 """
@@ -97,10 +119,13 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -122,6 +147,9 @@ MAX_SLOTS, MAX_SEQ = 2, 2048
 # served token at pos runs at pos + 128
 HYMBA_META = 128
 K1_HYMBA = (2, MAX_SEQ + HYMBA_META, 25, 5, 64)
+# the profiled decode steps (model.profile) run both slots at pos 40, ..., 49: K1 is
+# timed with both at the middle one
+K1_PROFILE_POS = [45, 45]
 # a bf16 K1 call against the exact (float64) attention of its bf16 inputs, element by element:
 # rtol bf16's unit roundoff 2^-8 (the output is rounded once), atol the fp32 arithmetic's
 # error (the f32 calls read <= 1.5e-7 against the plain version at both shapes)
@@ -406,24 +434,30 @@ def kernel_phase(ops, ref_fn, exact_fn) -> dict:
     worst = max(k1_checks(ops, ref_fn, exact_fn, shape, gen, tight)
                 for shape in (K1_GEMMA, K1_MOE, K1_HYMBA))
     phase("kernel.exact", tol=K1_BF16X_TOL, kernel=tight["kernel"], plain=tight["plain"])
-    gemma = k1_times(ops, ref_fn, K1_GEMMA, [200, 250], gen)
-    hymba = k1_times(ops, ref_fn, K1_HYMBA, [200 + HYMBA_META, 250 + HYMBA_META], gen)
-    return dict(gemma["full"], serving=gemma["serving"], hymba=hymba, max_abs_err=worst,
+    gemma = k1_times(ops, ref_fn, K1_GEMMA, {"serving": [200, 250],
+                                             "profile": K1_PROFILE_POS}, gen)
+    hymba = k1_times(ops, ref_fn, K1_HYMBA,
+                     {"serving": [200 + HYMBA_META, 250 + HYMBA_META],
+                      "profile": [p + HYMBA_META for p in K1_PROFILE_POS]}, gen)
+    moe = k1_times(ops, ref_fn, K1_MOE, {"profile": K1_PROFILE_POS}, gen, full=False)
+    return dict(gemma["full"], serving=gemma["serving"], profile=gemma["profile"],
+                moe_profile=moe["profile"], hymba=hymba, max_abs_err=worst,
                 bf16x=tight, ptxas_max_registers=max(u["registers"] for u in usage),
                 ptxas_max_spill=spills)
 
 
-def k1_times(ops, ref_fn, shape, serving: list, gen) -> dict:
+def k1_times(ops, ref_fn, shape, positions: dict, gen, full: bool = True) -> dict:
     """K1's time at one shape, at the serving dtype (bf16) without softcap, at the
-    full cache (pos = T-1) and at the serving positions: the kernel, the plain
-    version, SDPA with GQA and the bound -> {"full": row, "serving": row}."""
+    full cache (pos = T-1, unless not ``full``) and at each labelled list of
+    positions (the serving positions; the decode profiles' early ones): the
+    kernel, the plain version, SDPA with GQA and the bound -> {label: row}."""
     b, t, h, kh, d = shape
     dtype = torch.bfloat16
     q = torch.randn(b, 1, h, d, generator=gen, device=DEVICE).to(dtype)
     k = torch.randn(b, t, kh, d, generator=gen, device=DEVICE).to(dtype)
     v = torch.randn(b, t, kh, d, generator=gen, device=DEVICE).to(dtype)
     out = {}
-    for label, pos in (("full", [t - 1] * b), ("serving", serving)):
+    for label, pos in (({"full": [t - 1] * b} if full else {}) | positions).items():
         p = torch.tensor(pos, dtype=torch.int32, device=DEVICE)
         mask = (torch.arange(t, device=DEVICE)[None, :] <= p[:, None].long())[:, None, None, :]
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -1546,6 +1580,326 @@ def prefill_phase(cfg, n_params: int, kernels: dict, plain: dict, registry, stac
     return paths
 
 
+# training: gemma3-4b at full width and depth, float32 parameters and AdamW state, bf16
+# compute, every layer checkpointed, attn_impl="ref" (the kernels are forward only), one
+# sequence of the JAX package's train_4k length; TRAIN_STEPS optimizer steps
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 1, 4096, 4
+TRAIN_ADAMW = dict(lr=3e-4, warmup_steps=2, total_steps=100)
+# step 0's chunked loss against the cross entropy of the full logits (bf16 logits, fp32 CE)
+TRAIN_LOSS_BOUND = 1e-3
+# the profiler range around the optimizer's update in the profiled step
+ADAMW_RANGE = "train.adamw_update"
+# every family at its smoke config in float32, on the card and on the CPU from one seed:
+# the first step's gradients and the parameters after FAMILY_STEPS steps held within
+# 1e-4 of each leaf's largest entry, the losses within rtol 1e-4.  Adam's m / sqrt(v)
+# magnifies float32 rounding where a gradient component changes sign between steps, in
+# proportion to lr: at lr 1e-3 the parameters of deepseek-v2-lite-16b missed that bound
+# while its gradients held it, so the steps run at lr 1e-4
+TRAIN_FAMILIES = ["gemma3-4b", "internvl2-76b", "deepseek-moe-16b", "deepseek-v2-lite-16b",
+                  "rwkv6-3b", "hymba-1.5b", "whisper-tiny"]
+FAMILY_STEPS, FAMILY_LOSS_RTOL, FAMILY_TOL = 3, 1e-4, 1e-4
+FAMILY_ADAMW = dict(lr=1e-4, warmup_steps=1, total_steps=10)
+
+
+@contextlib.contextmanager
+def timed_updates(optimizer, into: list):
+    """optimizer.adamw_update run between two CUDA events (their pairs are
+    appended to ``into``) and inside the profiler range ADAMW_RANGE."""
+    update = optimizer.adamw_update
+
+    def call(*args):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with torch.profiler.record_function(ADAMW_RANGE):
+            s.record()
+            out = update(*args)
+            e.record()
+        into.append((s, e))
+        return out
+    optimizer.adamw_update = call
+    try:
+        yield
+    finally:
+        optimizer.adamw_update = update
+
+
+def train_phase(cfg, n_params: int, registry, layers, tr) -> None:
+    """TRAIN_STEPS optimizer steps of ``cfg`` through train_step at full width:
+    step 0's chunked loss held to the cross entropy of registry.forward's
+    logits, every loss and grad norm finite, the parameters moved by step 1;
+    the step's wall (median of steps 2..), tokens/s, peak memory, the
+    optimizer's share of the step (CUDA events around adamw_update), and one
+    more step under the profiler: device busy, idle share, the optimizer's
+    device time and the top device ops."""
+    params = registry.init_params(cfg, device=DEVICE, seed=0)
+    got = sum(t.numel() for t in registry.leaves(params))
+    if got != n_params:
+        raise AssertionError(f"{cfg.name} has {got} parameters, expected {n_params}")
+    dc = tr.data.DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S, global_batch=TRAIN_B)
+    batches = [tr.data.torch_batch_at(dc, i, DEVICE) for i in range(TRAIN_STEPS + 1)]
+
+    with torch.no_grad():
+        chunked = registry.loss_fn(cfg, params, batches[0])[0].item()
+        logits, _ = registry.forward(cfg, params, batches[0])
+        full = layers.cross_entropy(logits, batches[0]["targets"],
+                                    batches[0]["loss_mask"]).item()
+        del logits
+    free_cuda()
+    loss_rel = abs(chunked - full) / abs(full)
+    if not loss_rel <= TRAIN_LOSS_BOUND:
+        raise AssertionError(f"chunked loss {chunked} against the full logits' {full}: "
+                             f"{loss_rel} relative, bound {TRAIN_LOSS_BOUND}")
+
+    state = tr.optimizer.adamw_init(params)
+    step = tr.train_step.make_train_step(cfg, tr.train_step.TrainConfig(
+        adamw=tr.optimizer.AdamWConfig(**TRAIN_ADAMW)))
+    watched = [params["head"]["final_norm"], params["layers"][0]["attn"]["wq"],
+               params["layers"][-1]["mlp"]["wo"]]
+    before = [t.clone() for t in watched]
+    torch.cuda.reset_peak_memory_stats()
+    walls, updates, metrics = [], [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.monotonic()
+        with timed_updates(tr.optimizer, updates):
+            params, state, m = step(params, state, batches[i])
+            m = {k: v.item() for k, v in m.items()}           # the step's host sync
+        walls.append(time.monotonic() - t0)
+        metrics.append(m)
+        if i == 0:
+            moved = [(a - b).abs().max().item() for a, b in zip(watched, before)]
+            if not all(x > 0 for x in moved):
+                raise AssertionError(f"step 1 left parameters unchanged: {moved}")
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"step {i + 1}: non-finite metrics {m}")
+    peak = torch.cuda.max_memory_allocated()
+    del before
+    opt_ms = [s.elapsed_time(e) for s, e in updates]
+    wall = statistics.median(walls[1:])
+    opt_share = statistics.median(o / 1e3 / w for o, w in zip(opt_ms[1:], walls[1:]))
+
+    ranges = {ADAMW_RANGE: {}}
+    with timed_updates(tr.optimizer, []):
+        prof_wall, kern, spans = device_kernels(
+            lambda: step(params, state, batches[TRAIN_STEPS]), ranges=ranges)
+    fields = dict(arch=cfg.name, batch=TRAIN_B, seq=TRAIN_S, params=got,
+                  param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
+                  remat=cfg.remat, attn_impl=cfg.attn_impl, steps=TRAIN_STEPS,
+                  loss=[f"{m['loss']:.5f}" for m in metrics],
+                  grad_norm=[f"{m['grad_norm']:.5f}" for m in metrics],
+                  lr=[f"{m['lr']:.3e}" for m in metrics],
+                  chunked_vs_full_loss=f"{chunked:.6f} vs {full:.6f} ({loss_rel:.3g} rel, "
+                                       f"bound {TRAIN_LOSS_BOUND})",
+                  params_moved_by_step_1=[f"{x:.3g}" for x in moved],
+                  step_s=[f"{w:.4f}" for w in walls], step_s_median_2_on=f"{wall:.4f}",
+                  tokens_per_s=f"{TRAIN_B * TRAIN_S / wall:.1f}",
+                  adamw_update_ms=[f"{o:.2f}" for o in opt_ms],
+                  adamw_share_of_step=f"{opt_share:.4f}", peak_memory_allocated=peak)
+    if not kern:
+        fields["device_busy"] = "not measured (the profiler saw no kernels)"
+    else:
+        summ = kernel_summary(kern, spans, 1)
+        busy = summ["device_busy_ms"] / 1e3
+        upd = ranges[ADAMW_RANGE]
+        # the profiler's host overhead (tens of thousands of launches a step) stretches
+        # its wall: the idle share is also given against the unprofiled steps' median
+        fields.update(profiled_step=TRAIN_STEPS + 1, profiled_wall_s=f"{prof_wall:.4f}",
+                      device_busy_s=f"{busy:.4f}", idle_share=f"{1 - busy / prof_wall:.4f}",
+                      idle_share_of_unprofiled_step=f"{1 - busy / wall:.4f}",
+                      kernels_per_step=summ["kernels"],
+                      adamw_update_device_s=f"{upd['device_us'] / 1e6:.4f}",
+                      adamw_share_of_busy=f"{upd['device_us'] / 1e6 / busy:.4f}",
+                      top=repr(summ["top"]))
+    phase("train", **fields)
+    del params, state, batches
+    free_cuda()
+
+
+def leaf_err(a, b, tr) -> float:
+    """The largest over the leaves of max |a - b| / max |b| (b on the CPU)."""
+    return max((x.cpu() - y).abs().max().item() / max(y.abs().max().item(), 1e-30)
+               for x, y in zip(tr.tree.leaves(a), tr.tree.leaves(b)))
+
+
+def train_families_phase(get_smoke_config, registry, tr, kernels: dict) -> None:
+    """FAMILY_STEPS training steps of every family's smoke config in float32 (every
+    layer checkpointed) on the card and on the CPU from the same initial
+    weights (made on the CPU from one seed) and batches: the first step's
+    gradients and the final parameters held within FAMILY_TOL of each leaf's
+    largest entry, the losses within FAMILY_LOSS_RTOL; the card leg launches
+    no kernel of this repo."""
+    for arch in TRAIN_FAMILIES:
+        cfg = get_smoke_config(arch).replace(param_dtype="float32", compute_dtype="float32",
+                                             remat="full")
+        tcfg = tr.train_step.TrainConfig(adamw=tr.optimizer.AdamWConfig(**FAMILY_ADAMW))
+        dc = tr.data.DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=2,
+                                mean_doc_len=24)
+        rng = np.random.default_rng(3)
+        extras = {}
+        if cfg.family == "vlm":
+            extras["patch_embeds"] = rng.standard_normal((2, cfg.num_patches, cfg.d_model))
+        if cfg.family == "encdec":
+            extras["enc_embeds"] = rng.standard_normal((2, cfg.encoder_seq, cfg.d_model))
+        init = registry.init_params(cfg, device="cpu", seed=0)
+        runs = {}
+        for device in (DEVICE, "cpu"):
+            params = tr.tree.map_(lambda t, d=device: t.clone().to(d), init)
+            state = tr.optimizer.adamw_init(params)
+            step = tr.train_step.make_train_step(cfg, tcfg)
+            ex = {k: torch.tensor(v, dtype=torch.float32, device=device)
+                  for k, v in extras.items()}
+
+            def run(params=params, state=state, step=step, device=device, ex=ex):
+                grads = tr.train_step._grad_fn(cfg, params,
+                                               tr.data.torch_batch_at(dc, 0, device, ex))[2]
+                out = []
+                for i in range(FAMILY_STEPS):
+                    params, state, m = step(params, state,
+                                            tr.data.torch_batch_at(dc, i, device, ex))
+                    out.append({k: v.item() for k, v in m.items()})
+                return out, grads, params
+            t0 = time.monotonic()
+            (metrics, grads, params), launched = counted(kernels, run)
+            runs[device] = dict(metrics=metrics, grads=grads, params=params,
+                                s=time.monotonic() - t0, launched=launched)
+        card, cpu = runs[DEVICE], runs["cpu"]
+        if any(card["launched"].values()):
+            raise AssertionError(f"training {arch} launched kernels: {card['launched']}")
+        loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                       for a, b in zip(card["metrics"], cpu["metrics"]))
+        grad_err = leaf_err(card["grads"], cpu["grads"], tr)
+        param_err = leaf_err(card["params"], cpu["params"], tr)
+        fields = dict(arch=arch, family=cfg.family, steps=FAMILY_STEPS,
+                      loss_card=[f"{m['loss']:.6f}" for m in card["metrics"]],
+                      loss_cpu=[f"{m['loss']:.6f}" for m in cpu["metrics"]],
+                      loss_rel_err=f"{loss_rel:.3g}", grad_err_of_leaf_max=f"{grad_err:.3g}",
+                      param_err_of_leaf_max=f"{param_err:.3g}",
+                      card_s=f"{card['s']:.2f}", cpu_s=f"{cpu['s']:.2f}")
+        phase("train.family", **fields)
+        finite = all(np.isfinite(v) for m in card["metrics"] for v in m.values())
+        if (not finite or loss_rel > FAMILY_LOSS_RTOL or grad_err > FAMILY_TOL
+                or param_err > FAMILY_TOL):
+            raise AssertionError(f"{arch}: the card's training run is off the CPU's: "
+                                 f"loss {loss_rel}, grads {grad_err}, params {param_err}")
+
+
+def train_restart_phase(get_smoke_config, registry, tr) -> None:
+    """Four uninterrupted steps of the dense smoke config against two steps,
+    checkpoint.save, restore_latest into fresh state, two more steps, under
+    torch.use_deterministic_algorithms: losses and parameters bit-equal."""
+    cfg = get_smoke_config("gemma3-4b").replace(param_dtype="float32",
+                                                compute_dtype="float32")
+    tcfg = tr.train_step.TrainConfig(adamw=tr.optimizer.AdamWConfig(**FAMILY_ADAMW))
+    dc = tr.data.DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=2)
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    # cuBLAS is deterministic under a fixed workspace, which torch then asks for
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        def fresh():
+            params = registry.init_params(cfg, device=DEVICE, seed=0)
+            return params, tr.optimizer.adamw_init(params)
+        step = tr.train_step.make_train_step(cfg, tcfg)
+
+        def steps(params, state, lo, hi):
+            out = []
+            for i in range(lo, hi):
+                params, state, m = step(params, state, tr.data.torch_batch_at(dc, i, DEVICE))
+                out.append(m["loss"].item())
+            return params, state, out
+        pa, _, losses_a = steps(*fresh(), 0, 4)
+        pb, sb, losses_b = steps(*fresh(), 0, 2)
+        tr.checkpoint.save(str(ckpt_dir), 2, {"p": pb, "o": sb}, extra={"arch": cfg.name})
+        del pb, sb
+        like_p, like_s = fresh()
+        start, restored, extra = tr.checkpoint.restore_latest(str(ckpt_dir),
+                                                              {"p": like_p, "o": like_s})
+        pc, _, losses_c = steps(restored["p"], restored["o"], start, 4)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    diff = max((a - c).abs().max().item()
+               for a, c in zip(tr.tree.leaves(pa), tr.tree.leaves(pc)))
+    phase("train.restart", arch=cfg.name, restored_step=start, extra=extra,
+          losses_uninterrupted=losses_a, losses_restarted=losses_b + losses_c,
+          param_max_abs_diff=diff)
+    if start != 2 or losses_a != losses_b + losses_c or diff != 0.0:
+        raise AssertionError("the restarted run is not the uninterrupted one, bit for bit")
+
+
+def no_kernel_grad_phase(kernels: dict, plain: dict, get_smoke_config, registry, tr) -> None:
+    """Each kernel wrapper on the card (K2, K3 and K4 also through _launch) raises
+    when an input requires grad under grad mode, and launches under
+    torch.no_grad() (held to its plain version); a training step under
+    attn_impl="kernel" raises before it updates anything."""
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
+    q, k, v = rand(1, 128, 4, 64), rand(1, 128, 2, 64), rand(1, 128, 2, 64)
+    pos = torch.tensor([100], dtype=torch.int32, device=DEVICE)
+    # fan-in scaled weights, as the models' (K3's bf16 designs round h to bf16)
+    x, wg, wu, wo = rand(4, 16, 64), rand(4, 64, 128) / 8, rand(4, 64, 128) / 8, \
+        rand(4, 128, 64) / 11.3
+    r, kk, vv = rand(1, 64, 2, 64), rand(1, 64, 2, 64), rand(1, 64, 2, 64)
+    lw, u = -rand(1, 64, 2, 64).abs().float(), rand(2, 64).float()
+    k1, k2, k3, k4 = (kernels[n] for n in ("decode_attention", "flash_attention",
+                                           "moe_gemm", "rwkv6_scan"))
+    calls = [
+        ("decode_attention", k1, lambda t: k1.decode_attention(t[0][:, :1], t[1], t[2], pos),
+         lambda t: plain["decode_attention"](t[0][:, :1], t[1], t[2], pos), [q, k, v]),
+        ("flash_attention", k2, lambda t: k2.flash_attention(*t),
+         lambda t: plain["flash_attention"](*t), [q, k, v]),
+        ("flash_attention", k2, lambda t: k2._launch("mma", *t),
+         lambda t: plain["flash_attention"](*t), [q, k, v]),
+        ("moe_gemm", k3, lambda t: k3.moe_expert_ffn(*t), lambda t: plain["moe_gemm"](*t),
+         [x, wg, wu, wo]),
+        ("moe_gemm", k3, lambda t: k3._launch("wgmma", *t), lambda t: plain["moe_gemm"](*t),
+         [x, wg, wu, wo]),
+        ("rwkv6_scan", k4, lambda t: k4.rwkv6_scan(*t)[0],
+         lambda t: plain["rwkv6_scan"](*t)[0], [r, kk, vv, lw, u]),
+        ("rwkv6_scan", k4, lambda t: k4._launch(*t, None, k4.SEGMENT)[0],
+         lambda t: plain["rwkv6_scan"](*t)[0], [r, kk, vv, lw, u])]
+    refused = {}
+    for name, ops, call, ref, inputs in calls:
+        for j in range(len(inputs)):
+            ts = [t.clone().requires_grad_(n == j) for n, t in enumerate(inputs)]
+            n0 = ops.launches
+            try:
+                call(ts)
+            except RuntimeError as err:
+                if "forward-only kernel" not in str(err) or ops.launches != n0:
+                    raise
+            else:
+                raise AssertionError(f"{name} took an input that requires grad (input {j})")
+            refused[name] = refused.get(name, 0) + 1
+        with torch.no_grad():
+            n0 = ops.launches
+            out = call(inputs)
+            if ops.launches != n0 + 1:
+                raise AssertionError(f"{name} did not launch under no_grad")
+        atol, rtol = call_tol(name, inputs[0].dtype)
+        torch.testing.assert_close(out.float(), ref(inputs).float(), atol=atol, rtol=rtol)
+    cfg = get_smoke_config("gemma3-4b").replace(attn_impl="kernel")
+    params = registry.init_params(cfg, device=DEVICE, seed=0)
+    state = tr.optimizer.adamw_init(params)
+    before = [t.clone() for t in tr.tree.leaves(params)]
+    batch = tr.data.torch_batch_at(tr.data.DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                                      global_batch=2), 0, DEVICE)
+    try:
+        tr.train_step.train_step(cfg, tr.train_step.TrainConfig(), params, state, batch)
+    except RuntimeError as err:
+        if "forward-only kernel" not in str(err):
+            raise
+        step_error = str(err)
+    else:
+        raise AssertionError("a training step under attn_impl=\"kernel\" returned a loss")
+    if state["step"].item() != 0 or not all(
+            torch.equal(a, b) for a, b in zip(tr.tree.leaves(params), before)):
+        raise AssertionError("the refused training step changed the state")
+    phase("train.no_kernel_grad", refused_calls=refused, launched_under_no_grad=len(calls),
+          train_step_under_kernel=repr(step_error))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one NVIDIA GPU", file=sys.stderr)
@@ -1565,8 +1919,12 @@ def main() -> int:
     from repro_torch.kernels.moe_gemm.ref import moe_expert_ffn_bf16h_ref
     from repro_torch.kernels.rwkv6_scan import ops as k4_ops
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan_ref
-    from repro_torch.models import registry, stack
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import layers, registry, stack
     from repro_torch.serving.engine import ModelReplica, ServeRequest
+    from repro_torch.training import checkpoint, data, optimizer, train_step, tree
+    tr = types.SimpleNamespace(checkpoint=checkpoint, data=data, optimizer=optimizer,
+                               train_step=train_step, tree=tree)
 
     kernels = {"decode_attention": k1_ops, "flash_attention": k2_ops, "moe_gemm": k3_ops,
                "rwkv6_scan": k4_ops}
@@ -1680,6 +2038,15 @@ def main() -> int:
     paths.update(timed("prefill.whisper-tiny", prefill_phase, whisper, 56_355_840,
                        *prefill_args, batch=PREFILL_B, seq=PREFILL_S_WHISPER,
                        decode_steps=DECODE_AFTER, hold_logits=True))
+
+    # training, attn_impl="ref": no kernel of this repo on its path (they are forward only)
+    train = get_config("gemma3-4b").replace(param_dtype="float32", compute_dtype="bfloat16",
+                                            remat="full", attn_impl="ref")
+    timed("train.gemma3-4b", train_phase, train, 3_879_925_248, registry, layers, tr)
+    timed("train.families", train_families_phase, get_smoke_config, registry, tr, kernels)
+    timed("train.restart", train_restart_phase, get_smoke_config, registry, tr)
+    timed("train.no_kernel_grad", no_kernel_grad_phase, kernels, plain, get_smoke_config,
+          registry, tr)
 
     def per_path(name):
         return {p: n[name] for p, n in paths.items()}

@@ -30,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",)
@@ -104,6 +104,7 @@ def block_k(design: str, d: int) -> int:
 def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None, q_offset: int = 0):
     """q: (B, S, H, D); k, v: (B, T, K, D) -> (B, S, H, D)."""
+    refuse_grad("flash_attention", q, k, v)
     _check(q, k, v, window, softcap, q_offset)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
@@ -118,6 +119,7 @@ def _launch(design: str, q, k, v, *, causal: bool = True, window: Optional[int] 
     picks; the card tests and chip_smoke.py name each bf16 design, to hold and
     time the mma.sync design on the shapes the route sends to the wgmma one."""
     global launches
+    refuse_grad("flash_attention", q, k, v)
     _check(q, k, v, window, softcap, q_offset)
     b, s, h, d = q.shape
     takes = {"fma": q.dtype == torch.float32, "mma": q.dtype == torch.bfloat16,

@@ -27,7 +27,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 from repro_torch.kernels.moe_gemm.ref import moe_expert_ffn_ref
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "moe_gemm.cu",)
@@ -86,6 +86,7 @@ def route(dtype: torch.dtype, c: int) -> str:
 
 def moe_expert_ffn(x, wg, wu, wo):
     """x: (E, C, d); wg, wu: (E, d, f); wo: (E, f, d) -> (E, C, d)."""
+    refuse_grad("moe_expert_ffn", x, wg, wu, wo)
     _check(x, wg, wu, wo)
     if x.device.type == "cpu":
         return moe_expert_ffn_ref(x, wg, wu, wo)
@@ -97,6 +98,7 @@ def _launch(design: str, x, wg, wu, wo):
     picks; the card tests and chip_smoke.py name each bf16 design, to hold it
     on the shapes the route sends to the other."""
     global launches
+    refuse_grad("moe_expert_ffn", x, wg, wu, wo)
     _check(x, wg, wu, wo)
     e, c, d = x.shape
     takes = {"fma": x.dtype == torch.float32, "wgmma": x.dtype == torch.bfloat16,

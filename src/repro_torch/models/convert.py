@@ -8,8 +8,10 @@ top-level ``"meta"``).  The JAX tree stacks its layers by run
 with a leading axis of ``run.count`` when the run repeats.  Layer order is
 run by run, repetition by repetition, sub-layer by sub-layer.  Whisper's tree
 (``encdec``) has no runs: ``enc`` and ``dec`` each stack every layer on a
-leading axis, and become the port's ``"enc"`` and ``"dec"`` lists.  This
-module needs no jax: it reads numpy arrays only.
+leading axis, and become the port's ``"enc"`` and ``"dec"`` lists.
+``opt_state_from_jax`` carries an AdamW state across the same way (a
+gradient tree goes through ``params_from_jax``).  This module needs no jax:
+it reads numpy arrays only.
 """
 
 from __future__ import annotations
@@ -63,3 +65,11 @@ def params_from_jax(cfg: ModelConfig, tree: dict, *, device="cpu") -> dict:
     if "meta" in tree:
         out["meta"] = to_tensor(tree["meta"], device)
     return out
+
+
+def opt_state_from_jax(cfg: ModelConfig, state: dict, *, device="cpu") -> dict:
+    """The JAX package's AdamW state ``{"m", "v", "step"}`` (numpy leaves) ->
+    the port's: the moments through the same mapping as the parameters."""
+    return {"m": params_from_jax(cfg, state["m"], device=device),
+            "v": params_from_jax(cfg, state["v"], device=device),
+            "step": to_tensor(state["step"], device)}

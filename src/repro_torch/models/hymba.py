@@ -93,9 +93,14 @@ def selective_scan(dt, a, b_, c_, xc, d_skip, h0):
 
     One token at a time, h = exp(dt a) h + (dt x) b, y = h . c, as the JAX
     package's scan; the per-token decays and inputs are computed a block of
-    SCAN_BLOCK tokens at a time, so each token's update is one launch."""
+    SCAN_BLOCK tokens at a time, so each token's update is one launch.  It
+    writes each state into a preallocated block (``out=``), which autograd
+    refuses: when autograd records, each update makes a new state and the
+    block is stacked from them (one launch a token still, plus a copy a
+    block)."""
     xf = xc.float()
     h = h0
+    record = layers.grad_needed(dt, a, b_, c_, xf, d_skip, h0)
     ys = []
     for s0 in range(0, dt.shape[1], SCAN_BLOCK):
         # time-major blocks, so that token t's slices are contiguous
@@ -105,9 +110,16 @@ def selective_scan(dt, a, b_, c_, xc, d_skip, h0):
         c_t = c_[:, s0:s0 + SCAN_BLOCK].transpose(0, 1)
         da = torch.exp(dt_t[..., None] * a)                           # (s, B, di, N)
         dbx = (dt_t * x_t)[..., None] * b_t[:, :, None, :]
-        hs = torch.empty_like(da)
-        for t in range(da.shape[0]):
-            h = torch.addcmul(dbx[t], da[t], h, out=hs[t])
+        if record:
+            states = []
+            for t in range(da.shape[0]):
+                h = torch.addcmul(dbx[t], da[t], h)
+                states.append(h)
+            hs = torch.stack(states)
+        else:
+            hs = torch.empty_like(da)
+            for t in range(da.shape[0]):
+                h = torch.addcmul(dbx[t], da[t], h, out=hs[t])
         ys.append(torch.einsum("sbdn,sbn->bsd", hs, c_t))
     y = torch.cat(ys, dim=1) + xf * d_skip
     return y, h
@@ -212,12 +224,22 @@ def _embed_with_meta(cfg: ModelConfig, params, tokens):
     return x
 
 
+def _hidden(cfg: ModelConfig, params, batch):
+    x = _embed_with_meta(cfg, params, batch["tokens"])
+    apply = stack.maybe_remat(cfg, layer_apply)
+    for (window, kind), p in zip(stack.layer_sigs(cfg), params["layers"]):
+        x = apply(cfg, p, x, window=window, kind=kind)
+    return x[:, cfg.num_meta_tokens:]
+
+
 def forward(cfg: ModelConfig, params, batch):
     """batch: {"tokens": (B, S)} -> (logits over the token positions, aux dict)."""
-    x = _embed_with_meta(cfg, params, batch["tokens"])
-    for (window, kind), p in zip(stack.layer_sigs(cfg), params["layers"]):
-        x = layer_apply(cfg, p, x, window=window, kind=kind)
-    return head.logits(cfg, params["head"], x[:, cfg.num_meta_tokens:]), {}
+    return head.logits(cfg, params["head"], _hidden(cfg, params, batch)), {}
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    """batch: {"tokens", "targets" (B, S), "loss_mask" (optional)} -> (loss, {})."""
+    return head.chunked_loss(cfg, params["head"], _hidden(cfg, params, batch), batch), {}
 
 
 def layer_cache_shape(cfg: ModelConfig, window, batch: int, seq_len: int) -> dict:

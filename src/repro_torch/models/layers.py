@@ -2,8 +2,8 @@
 
 Counterpart of ``repro.models.layers``: init helpers, norms, RoPE, the
 memory-bounded reference ``attention()`` of the prefill/forward path and the
-decode pieces, sinusoidal positions (whisper), and the SwiGLU MLP; the losses
-come with the training slice.
+decode pieces, sinusoidal positions (whisper), the SwiGLU MLP and the
+cross-entropy loss.
 Parameter layouts are the JAX package's (e.g. ``wq`` is ``(d_model, H, D)``),
 so weights carry across unchanged.
 """
@@ -15,8 +15,16 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
+
+
+def grad_needed(*tensors) -> bool:
+    """True when autograd records and a tensor among ``tensors`` requires grad:
+    the training path.  Serving, prefill and forward hold parameters that
+    require none, and keep their memory-lean in-place forms."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -140,6 +148,9 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     divisor of S that is <= q_block; windowed layers slice the key range to
     ``min(T, qb + window)`` keys, so compute is O(S * window), not O(S * T).
     A query row with no visible key gets the mean of v, as in the JAX package.
+    When autograd records, each query block runs under ``checkpoint`` (the
+    JAX package's ``@jax.checkpoint``), so a backward recomputes one block's
+    scores at a time and never holds every block's.
     """
     b, s, h, d = q.shape
     t = k.shape[1]
@@ -161,8 +172,8 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     while s % qb:        # largest divisor of s <= q_block
         qb -= 1
     key_span = t if window is None else min(t, qb + int(window))
-    out = torch.empty((b, s, h, dv), dtype=out_dtype, device=q.device)
-    for qi in range(0, s, qb):
+
+    def block(q, k, v, qi: int):
         qpos = q_offset + qi + torch.arange(qb, device=q.device)
         kstart = 0 if window is None else min(max(qi + q_offset - window + 1, 0), t - key_span)
         kpos = kstart + torch.arange(key_span, device=q.device)
@@ -174,7 +185,14 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
         if window is not None:
             mask &= kpos[None, :] > qpos[:, None] - window
         probs = torch.softmax(scores.masked_fill(~mask, NEG_INF), dim=-1)
-        out[:, qi:qi + qb] = _gqa_out(probs, v[:, kstart:kstart + key_span]).to(out_dtype)
+        return _gqa_out(probs, v[:, kstart:kstart + key_span]).to(out_dtype)
+
+    if grad_needed(q, k, v):
+        return torch.cat([checkpoint(block, q, k, v, qi, use_reentrant=False)
+                          for qi in range(0, s, qb)], dim=1)
+    out = torch.empty((b, s, h, dv), dtype=out_dtype, device=q.device)
+    for qi in range(0, s, qb):
+        out[:, qi:qi + qb] = block(q, k, v, qi)
     return out
 
 
@@ -195,3 +213,28 @@ def swiglu_apply(p, x, cdtype):
     gate = x @ p["wi_gate"].to(cdtype)
     up = x @ p["wi_up"].to(cdtype)
     return (F.silu(gate) * up) @ p["wo"].to(cdtype)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+
+def nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-position negative log-likelihood: the float32 logsumexp of (..., V)
+    logits minus the gold logit.  The gold logit is gathered; the JAX
+    package's one-hot reduction (kept there for a vocab-sharded axis) sums
+    the same value with zeros, so both give the same number."""
+    logits = logits.float()
+    gold = logits.gather(-1, targets.long()[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1) - gold
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, S, V) logits against (B, S) ids, averaged over the mask
+    (``sum / max(mask.sum(), 1)``) or over every position."""
+    nll_ = nll(logits, targets)
+    if mask is not None:
+        return (nll_ * mask).sum() / torch.clamp(mask.sum(), min=1)
+    return nll_.mean()

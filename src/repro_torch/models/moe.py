@@ -229,8 +229,9 @@ def _hidden(cfg: ModelConfig, params, batch):
     """-> (hidden, the layers' aux terms summed, as ``stack.apply_runs_aux``)."""
     x = head.embed(cfg, params["head"], batch["tokens"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    apply = stack.maybe_remat(cfg, layer_apply)
     for (window, kind), p in zip(stack.layer_sigs(cfg), params["layers"]):
-        x, a = layer_apply(cfg, p, x, window=window, kind=kind)
+        x, a = apply(cfg, p, x, window=window, kind=kind)
         aux = aux + a
     return x, aux
 
@@ -239,6 +240,12 @@ def forward(cfg: ModelConfig, params, batch):
     """batch: {"tokens": (B, S)} -> (logits, {"moe_aux": aux})."""
     x, aux = _hidden(cfg, params, batch)
     return head.logits(cfg, params["head"], x), {"moe_aux": aux}
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    """-> (cross entropy + the load-balance aux, {"moe_aux": aux})."""
+    x, aux = _hidden(cfg, params, batch)
+    return head.chunked_loss(cfg, params["head"], x, batch) + aux, {"moe_aux": aux}
 
 
 def prefill(cfg: ModelConfig, params, cache, batch):

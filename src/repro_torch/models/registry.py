@@ -6,12 +6,12 @@ Every family module implements:
   init_cache(cfg, batch, seq_len, device=)
   prefill(cfg, params, cache, batch) -> (logits, cache)
   decode_step(cfg, params, cache, tokens, pos) -> (logits, cache)
+  loss_fn(cfg, params, batch) -> (loss, aux)
 Every family of the JAX package's registry is ported: ``dense`` and ``vlm``
 (``models.transformer``), ``moe`` (with MHA or MLA attention), ``ssm``
 (``models.rwkv6``), ``hybrid`` (``models.hymba``) and ``encdec``
-(``models.whisper``).  ``loss_fn`` and training come with the training
-slice.  ``reset_slot`` zeroes one serving slot's recurrent state, for the
-families that keep one (ssm, hybrid).
+(``models.whisper``).  ``reset_slot`` zeroes one serving slot's recurrent
+state, for the families that keep one (ssm, hybrid).
 """
 
 from __future__ import annotations
@@ -47,6 +47,11 @@ def init_params(cfg: ModelConfig, *, device, seed: int = 0):
 
 def forward(cfg: ModelConfig, params, batch):
     return family_module(cfg).forward(cfg, params, batch)
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    """The training loss (chunked cross entropy, + the moe aux) -> (loss, aux)."""
+    return family_module(cfg).loss_fn(cfg, params, batch)
 
 
 def prefill(cfg: ModelConfig, params, cache, batch):

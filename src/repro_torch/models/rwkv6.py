@@ -229,12 +229,22 @@ def init_params(cfg: ModelConfig, *, device: torch.device, seed: int = 0) -> dic
                        for _, kind in stack.layer_sigs(cfg)]}
 
 
+def _hidden(cfg: ModelConfig, params, batch):
+    x = head.embed(cfg, params["head"], batch["tokens"])
+    apply = stack.maybe_remat(cfg, layer_apply)
+    for (window, kind), p in zip(stack.layer_sigs(cfg), params["layers"]):
+        x = apply(cfg, p, x, window=window, kind=kind)
+    return x
+
+
 def forward(cfg: ModelConfig, params, batch):
     """batch: {"tokens": (B, S)} -> (logits, aux dict)."""
-    x = head.embed(cfg, params["head"], batch["tokens"])
-    for (window, kind), p in zip(stack.layer_sigs(cfg), params["layers"]):
-        x = layer_apply(cfg, p, x, window=window, kind=kind)
-    return head.logits(cfg, params["head"], x), {}
+    return head.logits(cfg, params["head"], _hidden(cfg, params, batch)), {}
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    """batch: {"tokens", "targets" (B, S), "loss_mask" (optional)} -> (loss, {})."""
+    return head.chunked_loss(cfg, params["head"], _hidden(cfg, params, batch), batch), {}
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,

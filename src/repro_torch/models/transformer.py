@@ -74,8 +74,9 @@ def _embed_inputs(cfg: ModelConfig, params, batch):
 
 def _hidden(cfg: ModelConfig, params, batch):
     x = _embed_inputs(cfg, params, batch)
+    apply = stack.maybe_remat(cfg, layer_apply)
     for (window, kind), p in zip(stack.layer_sigs(cfg), params["layers"]):
-        x = layer_apply(cfg, p, x, window=window, kind=kind)
+        x = apply(cfg, p, x, window=window, kind=kind)
     return x[:, cfg.num_patches:] if cfg.family == "vlm" else x
 
 
@@ -83,6 +84,12 @@ def forward(cfg: ModelConfig, params, batch):
     """batch: {"tokens": (B, S)} (+ "patch_embeds" for vlm) -> (logits over
     token positions, aux dict)."""
     return head.logits(cfg, params["head"], _hidden(cfg, params, batch)), {}
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    """batch: {"tokens", "targets" (B, S), "loss_mask" (optional)} (+
+    "patch_embeds" for vlm) -> (loss over the token positions, {})."""
+    return head.chunked_loss(cfg, params["head"], _hidden(cfg, params, batch), batch), {}
 
 
 def prefill(cfg: ModelConfig, params, cache, batch):

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, head, layers
+from repro_torch.models import attention, head, layers, stack
 from repro_torch.models.layers import NEG_INF
 
 # -- small building blocks ----------------------------------------------------
@@ -124,18 +124,38 @@ def _embed(cfg: ModelConfig, params, tokens):
     return x + _pos(cfg, x.shape[1], x.device)
 
 
-def forward(cfg: ModelConfig, params, batch):
-    """batch: {"tokens": (B, S), "enc_embeds": (B, frames, d)} -> (logits, aux)."""
+def _dec_layer(cfg: ModelConfig, p, x, enc_out):
+    h = layers.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    x = x + _attn(cfg, p["self"], h, h, causal=True)
+    h = layers.rmsnorm(x, p["lnx"], cfg.norm_eps)
+    x = x + _attn(cfg, p["cross"], h, enc_out, causal=False)
+    h = layers.rmsnorm(x, p["ln2"], cfg.norm_eps)
+    return x + _mlp(p["mlp"], h, cfg.cdtype)
+
+
+def _hidden(cfg: ModelConfig, params, batch):
+    """The decoder's output.  Each decoder layer is checkpointed unless
+    ``remat == "none"`` (``dots`` too checkpoints it whole, as the JAX
+    package's ``jax.checkpoint`` of the decoder body does); the encoder is
+    not."""
     enc_out = encode(cfg, params, batch["enc_embeds"])
     x = _embed(cfg, params, batch["tokens"])
+    layer = stack.maybe_remat(cfg if cfg.remat == "none" else cfg.replace(remat="full"),
+                              _dec_layer)
     for p in params["dec"]:
-        h = layers.rmsnorm(x, p["ln1"], cfg.norm_eps)
-        x = x + _attn(cfg, p["self"], h, h, causal=True)
-        h = layers.rmsnorm(x, p["lnx"], cfg.norm_eps)
-        x = x + _attn(cfg, p["cross"], h, enc_out, causal=False)
-        h = layers.rmsnorm(x, p["ln2"], cfg.norm_eps)
-        x = x + _mlp(p["mlp"], h, cfg.cdtype)
-    return head.logits(cfg, params["head"], x), {}
+        x = layer(cfg, p, x, enc_out)
+    return x
+
+
+def forward(cfg: ModelConfig, params, batch):
+    """batch: {"tokens": (B, S), "enc_embeds": (B, frames, d)} -> (logits, aux)."""
+    return head.logits(cfg, params["head"], _hidden(cfg, params, batch)), {}
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    """batch: {"tokens", "targets" (B, S), "loss_mask" (optional), "enc_embeds"}
+    -> (loss, {})."""
+    return head.chunked_loss(cfg, params["head"], _hidden(cfg, params, batch), batch), {}
 
 
 # -- caches, prefill, decode ---------------------------------------------------------
