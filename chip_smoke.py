@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, prefill and training paths once on one NVIDIA GPU, and check them.
+"""Drive the PyTorch/CUDA port's serving, prefill, training and fluid-simulator paths once on one NVIDIA GPU, and check them.
 
     python3 chip_smoke.py
 
@@ -108,6 +108,27 @@ card's name and power limit as nvidia-smi gives them on a line of its own):
                   K1-K4 (K2, K3 and K4 also through _launch) raise on CUDA
                   inputs that require grad and launch under no_grad; a
                   training step under attn_impl="kernel" raises
+  fluid.*         the fluid simulator (repro_torch.core.simtorch; no kernel of
+                  this repo), every full-size row held to the JAX package's in
+                  tests/data/torch_fluid_jax_rows.json (rows rtol 1e-4, the
+                  slowdown 1e-3; written with jax by
+                  tests/test_torch_fluid_reference.py): fluid.trace
+                  (fig9_production's 2000-function, 4800 s trace: its
+                  3,502,489 invocations, the host seconds of rate_matrix and
+                  gap_statistics); fluid.fig9 (benchmarks/fig9_large_scale.py's
+                  six policies through simulate_chunked, 50 nodes, chunks of
+                  512: wall, ticks/s, the metrics, peak memory; one chunk of
+                  sync ka 600 under the profiler: launches, device busy and
+                  wall per tick, the idle share); fluid.sweep (one batch of 64
+                  async points at window 600: 0.7 and 1.0 held to the
+                  reference, four points run alone held to their batched rows
+                  at 1e-6); fluid.fleet (JaxFleet under sync ka 600, and the
+                  spot tier); fluid.telemetry (64 slots: the ledger's exact
+                  sums, the rest of the row the fluid.fig9 row bit for bit);
+                  fluid.history (summarize(simulate()) against the chunked
+                  row); fluid.planet (fig9_planet's 100,000 functions through
+                  the float32 slowdown solver); fluid.cpu (every family with
+                  and without a fleet, the card against the CPU)
 Then one JSON line of per-kernel numbers, and last the result line
 ``{"ok": true, "device": {...}}``.  Any failure ends the run non-zero.
 """
@@ -1900,6 +1921,342 @@ def no_kernel_grad_phase(kernels: dict, plain: dict, get_smoke_config, registry,
           train_step_under_kernel=repr(step_error))
 
 
+# ---------------------------------------------------------------------------
+# the fluid simulator (repro_torch.core.simtorch) at fig9_production's and
+# fig9_planet's full size.  No kernel of this repo is on its path: the JAX
+# engine's lax.scan reaches no Pallas kernel, and the port runs the tick eagerly.
+# ---------------------------------------------------------------------------
+# the JAX package's rows for the full-size runs (this script imports no jax), written
+# with jax by tests/test_torch_fluid_reference.py: the traces, every run's configuration
+# and row, the 64-point sweep, the tolerances (rows rtol 1e-4, slowdown 1e-3)
+FLUID_REF = ROOT / "tests" / "data" / "torch_fluid_jax_rows.json"
+FLUID_PROFILED_RUN = "fig9.sync_ka600"
+FLUID_PROFILED_TICKS = 512                   # one chunk of that run, under the profiler
+FLUID_TELEMETRY_SLOTS = 64
+# the tolerances of tests/test_scenarios.py::test_chunked_matches_full_history
+HISTORY_KEYS = ("normalized_memory", "creation_rate", "cpu_overhead", "instances_mean",
+                "nodes_mean", "node_seconds", "completed")
+HISTORY_RTOL, HISTORY_SLOWDOWN_RTOL = 1e-3, 0.05
+# fluid.cpu: the card against the port on the CPU, every family with and without a fleet
+FLUID_CPU_TRACE = dict(num_functions=200, duration_s=1200, target_total_rps=20, seed=3)
+FLUID_CPU_FLEET = dict(node_memory_mb=8192.0, min_nodes=1, max_nodes=32)
+
+
+@contextlib.contextmanager
+def part(spent: dict, name: str):
+    """Add the wall seconds of the block to spent[name]."""
+    t0 = time.monotonic()
+    try:
+        yield
+    finally:
+        spent[name] = spent.get(name, 0.0) + time.monotonic() - t0
+
+
+def parts(spent: dict) -> dict:
+    return {k: round(v, 2) for k, v in spent.items()}
+
+
+def start_peak() -> int:
+    """Reset the peak counter -> the bytes already allocated (what earlier
+    phases still hold), which ``peak_above`` subtracts."""
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def peak_above(base: int) -> int:
+    """The peak bytes allocated since ``start_peak``, above what was held then."""
+    return torch.cuda.max_memory_allocated() - base
+
+
+def fluid_modules():
+    from repro_torch.core import simtorch
+    from repro_torch.core import trace as trace_mod
+    from repro_torch.core.eventsim import SimConfig
+    from repro_torch.core.policies import init_theta
+    from repro_torch.core.runspec import RunSpec
+    from repro_torch.obs import check_ledger, ledger_from_chunked
+    ref = json.loads(FLUID_REF.read_text())
+    return types.SimpleNamespace(
+        st=simtorch, tr=trace_mod, SimConfig=SimConfig, RunSpec=RunSpec,
+        init_theta=init_theta, check_ledger=check_ledger,
+        ledger_from_chunked=ledger_from_chunked, ref=ref, tol=ref["tolerances"],
+        runs={r["name"]: r for r in ref["runs"]})
+
+
+def fluid_trace(fl, name: str):
+    t = fl.ref["traces"][name]
+    cfg = fl.tr.TraceConfig(**t["config"])
+    trace = fl.tr.synthesize(cfg) if t["kind"] == "events" \
+        else fl.tr.synthesize_rates(cfg, tick_s=t["tick_s"])
+    if len(trace) != t["requests"]:
+        raise AssertionError(f"{name}: {len(trace)} requests, the JAX package's "
+                             f"{t['requests']}")
+    return trace
+
+
+def hold_fluid_row(got: dict, want: dict, rtol: float, slowdown_rtol: float,
+                   label: str) -> str:
+    """Every metric of ``got`` within rtol of ``want`` (the slowdown within its
+    own) -> the largest relative errors of the slowdown and of the rest."""
+    if set(got) - {"telemetry"} != set(want) - {"telemetry"}:
+        raise AssertionError(f"{label}: keys {sorted(got)} against {sorted(want)}")
+    worst = {"slowdown": (0.0, ""), "rest": (0.0, "")}
+    for k, v in want.items():
+        if k == "telemetry":
+            continue
+        lim = slowdown_rtol if k == "slowdown_geomean_p99" else rtol
+        rel = abs(got[k] - v) / max(abs(v), 1e-12)
+        if not (rel <= lim or abs(got[k] - v) <= 1e-12):
+            raise AssertionError(f"{label}: {k} = {got[k]!r} against {v!r} "
+                                 f"(relative {rel:.3g} > {lim})")
+        key = "slowdown" if k == "slowdown_geomean_p99" else "rest"
+        worst[key] = max(worst[key], (rel, k))
+    return f"{worst['slowdown'][0]:.3g}/{worst['rest'][0]:.3g}:{worst['rest'][1]}"
+
+
+def hold_ref_row(fl, got: dict, want: dict, label: str) -> str:
+    return hold_fluid_row(got, want, fl.tol["row_rtol"], fl.tol["slowdown_rtol"], label)
+
+
+def fluid_call(fl, trace, run: dict, **kw):
+    """simulate_chunked of one reference run on the card -> (row, wall s, peak bytes)."""
+    fleet = fl.st.JaxFleet(**run["fleet"]) if run.get("fleet") is not None else None
+    base = start_peak()
+    t0 = time.monotonic()
+    row = fl.st.simulate_chunked(trace, fl.st.JaxPolicy(**run["policy"]), dt=run["dt"],
+                                 num_nodes=run["num_nodes"], fleet=fleet,
+                                 chunk_ticks=run["chunk_ticks"], device=DEVICE, **kw)
+    return row, time.monotonic() - t0, peak_above(base)
+
+
+def fluid_line(label: str, name: str, row: dict, wall: float, peak: int, ticks: int,
+               fns: int, **extra) -> None:
+    phase(label, run=name, wall_s=f"{wall:.3f}", ticks_per_s=f"{ticks / wall:.1f}",
+          function_ticks_per_s=f"{ticks * fns / wall:.4g}",
+          slowdown_geomean_p99=f"{row['slowdown_geomean_p99']:.6g}",
+          normalized_memory=f"{row['normalized_memory']:.6g}",
+          cpu_overhead=f"{row['cpu_overhead']:.6g}",
+          worker_share=f"{row['worker_share']:.6g}", peak_mem_bytes=peak, **extra)
+
+
+def fluid_trace_phase(fl):
+    """fig9_production's base trace (2000 functions, 4800 s, 729 rps, seed 9):
+    its size against the JAX package's, and the host seconds of the two
+    preparations every simulate_chunked call makes."""
+    spent = {}
+    with part(spent, "synthesize"):
+        trace = fluid_trace(fl, "fig9_production")
+    with part(spent, "rate_matrix"):
+        counts = fl.tr.rate_matrix(trace)
+    with part(spent, "gap_statistics"):
+        fl.tr.gap_statistics(trace)
+    phase("fluid.trace", trace="fig9_production", functions=trace.num_functions,
+          ticks=counts.shape[0], invocations=len(trace),
+          jax_invocations=fl.ref["traces"]["fig9_production"]["requests"],
+          rate_matrix_bytes=counts.nbytes,
+          held_by_earlier_phases_bytes=torch.cuda.memory_allocated(),
+          phase_parts_s=parts(spent))
+    return trace
+
+
+def fluid_profile(fl, trace, run: dict) -> dict:
+    """One measured chunk of ``run`` (FLUID_PROFILED_TICKS ticks from the warm-up
+    tick, from a fresh state) under the profiler and alone: launches, device busy
+    and host wall per tick, the idle share, the top device activities."""
+    st = fl.st
+    pol = st.JaxPolicy(**run["policy"])
+    setup = st._chunked_setup(trace, pol, st.stack_params([pol.params()]),
+                              np.zeros((1, len(st._PFLEET)), np.float32),
+                              sim=fl.SimConfig(), dt=run["dt"], num_nodes=run["num_nodes"],
+                              provision_s=0.0, has_fleet=False,
+                              chunk_ticks=FLUID_PROFILED_TICKS, warmup_frac=0.5, nbins=256,
+                              device=DEVICE)
+    t0, n = setup.chunk_kw["warm_tick"], FLUID_PROFILED_TICKS
+
+    def chunk():
+        with torch.no_grad():
+            st._chunk_impl(setup.state, setup.arr[t0:t0 + n], tick0=t0, **setup.chunk_kw)
+    chunk()
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    chunk()
+    torch.cuda.synchronize()
+    plain = time.monotonic() - t1
+    wall, kern, spans = device_kernels(chunk)
+    launches = sum(k.count for k in kern)
+    busy_us = covered_us([(s, e) for _, s, e in spans])
+    top = sorted(kern, key=lambda k: -k.self_device_time_total)[:6]
+    return dict(run=run["name"], ticks=n, launches=launches,
+                launches_per_tick=f"{launches / n:.2f}",
+                device_busy_us_per_tick=f"{busy_us / n:.3f}",
+                wall_ms_per_tick=f"{plain * 1e3 / n:.4f}",
+                profiled_wall_ms_per_tick=f"{wall * 1e3 / n:.4f}",
+                idle_share=f"{1.0 - busy_us / (wall * 1e6):.4f}",
+                idle_share_unprofiled=f"{1.0 - busy_us / (plain * 1e6):.4f}",
+                top=[(k.key[:60], k.count, round(k.self_device_time_total, 1)) for k in top])
+
+
+def fluid_fig9_phase(fl, trace) -> dict:
+    """benchmarks/fig9_large_scale.py's six policies through simulate_chunked
+    (50 nodes, chunks of 512), every metric held to the JAX package's row; one
+    chunk of sync ka 600 profiled."""
+    rows, spent = {}, {}
+    f, ticks = trace.num_functions, int(np.ceil(trace.duration_s))
+    for run in (r for r in fl.ref["runs"] if r["name"].startswith("fig9.")):
+        with part(spent, run["name"]):
+            row, wall, peak = fluid_call(fl, trace, run)
+        err = hold_ref_row(fl, row, run["row"], run["name"])
+        fluid_line("fluid.fig9", run["name"], row, wall, peak, ticks, f,
+                   max_rel_err_vs_jax=err)
+        rows[run["name"]] = row
+    with part(spent, "profile"):
+        prof = fluid_profile(fl, trace, fl.runs[FLUID_PROFILED_RUN])
+    phase("fluid.fig9.profile", **prof)
+    phase("fluid.fig9", runs=len(rows), phase_parts_s=parts(spent))
+    return rows
+
+
+def fluid_sweep_phase(fl, trace, fig9_rows: dict) -> None:
+    """A frontier sweep's batched shape: one _chunked_summaries call over 64 async
+    points at window 600; the rows at targets 0.7 and 1.0 held to the JAX package's,
+    four more points run alone and held to their batched rows."""
+    st, sw = fl.st, fl.ref["sweep"]
+    pols = [st.JaxPolicy(**sw["policy"], target=t) for t in sw["targets"]]
+    spent = {}
+    base = start_peak()
+    with part(spent, "batch"):
+        rows = st._chunked_summaries(
+            trace, pols[0], st.stack_params([p.params() for p in pols]),
+            np.zeros((len(pols), len(st._PFLEET)), np.float32), sim=fl.SimConfig(),
+            dt=sw["dt"], num_nodes=sw["num_nodes"], provision_s=0.0, has_fleet=False,
+            chunk_ticks=sw["chunk_ticks"], warmup_frac=0.5, nbins=256, device=DEVICE)
+    peak = peak_above(base)
+    by_target = dict(zip(sw["targets"], rows))
+    held = {t: hold_ref_row(fl, by_target[float(t)], fl.runs[name]["row"], f"sweep {t}")
+            for t, name in sw["held"].items()}
+    alone = {}
+    tol = fl.tol["batched_vs_alone_rtol"]
+    for t in sw["alone"]:
+        with part(spent, "alone"):
+            row = st.simulate_chunked(trace, st.JaxPolicy(**sw["policy"], target=t),
+                                      dt=sw["dt"], num_nodes=sw["num_nodes"],
+                                      chunk_ticks=sw["chunk_ticks"], device=DEVICE)
+        alone[t] = hold_fluid_row(row, by_target[t], tol, tol, f"sweep {t} alone")
+    wall = spent["batch"]
+    ticks = int(np.ceil(trace.duration_s))
+    phase("fluid.sweep", points=len(pols), wall_s=f"{wall:.3f}",
+          s_per_point=f"{wall / len(pols):.4f}",
+          point_ticks_per_s=f"{len(pols) * ticks / wall:.1f}", peak_mem_bytes=peak,
+          held_before_bytes=base,
+          held_max_rel_err_vs_jax=held, alone_max_rel_err=alone,
+          phase_parts_s=parts(spent))
+
+
+def fluid_fleet_phase(fl, trace) -> None:
+    """The two-level fleet (JaxFleet's defaults) under sync ka 600, and the spot
+    tier (spot_aware: ka 600, half the nodes on spot, 2 reclaims a node-hour)."""
+    f, ticks = trace.num_functions, int(np.ceil(trace.duration_s))
+    for name in ("fleet.sync_ka600", "fleet.spot_aware"):
+        run = fl.runs[name]
+        row, wall, peak = fluid_call(fl, trace, run)
+        err = hold_ref_row(fl, row, run["row"], name)
+        fluid_line("fluid.fleet", name, row, wall, peak, ticks, f,
+                   nodes_mean=f"{row['nodes_mean']:.6g}",
+                   spot_nodes_mean=f"{row['spot_nodes_mean']:.6g}",
+                   max_rel_err_vs_jax=err)
+
+
+def fluid_telemetry_phase(fl, trace, fig9_rows: dict) -> None:
+    """sync ka 600 with 64 telemetry slots: the attribution ledger's exact sums
+    hold, and the rest of the row is the fluid.fig9 row, bit for bit."""
+    run = fl.runs[FLUID_PROFILED_RUN]
+    row, wall, peak = fluid_call(fl, trace, run,
+                                 spec=fl.RunSpec(telemetry=FLUID_TELEMETRY_SLOTS))
+    problems = fl.check_ledger(fl.ledger_from_chunked(row))
+    if problems:
+        raise AssertionError(f"telemetry ledger: {problems}")
+    plain = {k: v for k, v in row.items() if k != "telemetry"}
+    if plain != fig9_rows[run["name"]]:
+        diff = {k: (v, fig9_rows[run["name"]][k]) for k, v in plain.items()
+                if v != fig9_rows[run["name"]][k]}
+        raise AssertionError(f"the row with telemetry differs from the row without: {diff}")
+    phase("fluid.telemetry", run=run["name"], slots=row["telemetry"]["slots"],
+          wall_s=f"{wall:.3f}", peak_mem_bytes=peak, ledger_problems=0,
+          row_equals_fig9_bit_for_bit=True,
+          attribution={k: f"{v:.6g}" for k, v in row["telemetry"]["attribution"].items()})
+
+
+def fluid_history_phase(fl, trace, fig9_rows: dict) -> None:
+    """summarize(simulate(...)) on the card against the chunked row of the same
+    run, at the tolerances of the JAX package's chunked-vs-full-history test."""
+    st, run = fl.st, fl.runs[FLUID_PROFILED_RUN]
+    spent = {}
+    base = start_peak()
+    with part(spent, "simulate"):
+        res = st.simulate(trace, st.JaxPolicy(**run["policy"]), dt=run["dt"],
+                          num_nodes=run["num_nodes"], device=DEVICE)
+    peak = peak_above(base)
+    with part(spent, "summarize"):
+        full = st.summarize(res)
+    chunk = fig9_rows[run["name"]]
+    errs = {}
+    for k in HISTORY_KEYS + ("slowdown_geomean_p99",):
+        lim = HISTORY_SLOWDOWN_RTOL if k == "slowdown_geomean_p99" else HISTORY_RTOL
+        errs[k] = abs(chunk[k] - full[k]) / max(abs(full[k]), 1e-12)
+        if not errs[k] <= lim:
+            raise AssertionError(f"history {k}: chunked {chunk[k]!r}, full {full[k]!r}")
+    phase("fluid.history", run=run["name"], series_shape=res.delay.shape,
+          series_bytes=res.delay.nbytes + res.arrivals.nbytes + res.arr_delayed.nbytes,
+          peak_mem_bytes=peak, rel_err_chunked_vs_full={k: f"{e:.3g}" for k, e in errs.items()},
+          phase_parts_s=parts(spent))
+
+
+def fluid_planet_phase(fl) -> None:
+    """fig9_planet's base, unclustered: 100,000 functions, 1200 ticks of 2 s, 2500
+    nodes, chunks of 256, sync ka 600; its 25.6M-cell histogram goes through the
+    float32 slowdown solver on the card.  Held to the JAX package's row."""
+    spent = {}
+    with part(spent, "synthesize_rates"):
+        trace = fluid_trace(fl, "fig9_planet")
+    run = fl.runs["planet.sync_ka600"]
+    cells = trace.num_functions * 256
+    if cells < fl.st._TORCH_SOLVER_MIN_CELLS:
+        raise AssertionError(f"fig9_planet's histogram ({cells} cells) misses the torch solver")
+    with part(spent, "simulate_chunked"):
+        row, wall, peak = fluid_call(fl, trace, run)
+    err = hold_ref_row(fl, row, run["row"], run["name"])
+    fluid_line("fluid.planet", run["name"], row, wall, peak, trace.counts.shape[0],
+               trace.num_functions, histogram_cells=cells, max_rel_err_vs_jax=err,
+               phase_parts_s=parts(spent))
+
+
+def fluid_cpu_phase(fl) -> None:
+    """The card against the port on the CPU: every policy family, with and without
+    a fleet, on a 200-function trace, rows held at the reference tolerances."""
+    st = fl.st
+    trace = fl.tr.synthesize(fl.tr.TraceConfig(**FLUID_CPU_TRACE))
+    theta = dict(fl.init_theta(1), w2=np.asarray([0.4, -0.3, 0.2, 0.5], np.float32))
+    policies = {"sync": dict(kind=0, keepalive_s=600),
+                "async": dict(kind=1, window_s=60, target=0.7),
+                "hybrid": dict(kind=2, keepalive_s=600, prewarm_s=1.0),
+                "learned": dict(kind=3, theta=theta),
+                "spot_aware": dict(family="spot_aware", keepalive_s=600,
+                                   extra=dict(spot_fraction=0.5, hazard_per_hour=2.0))}
+    spent, errs = {}, {}
+    for name, kw in policies.items():
+        for fleet in (None, st.JaxFleet(**FLUID_CPU_FLEET)):
+            label = name + (".fleet" if fleet else "")
+            with part(spent, "card"):
+                card = st.simulate_chunked(trace, st.JaxPolicy(**kw), fleet=fleet,
+                                           device=DEVICE)
+            with part(spent, "cpu"):
+                cpu = st.simulate_chunked(trace, st.JaxPolicy(**kw), fleet=fleet,
+                                          device="cpu")
+            errs[label] = hold_ref_row(fl, card, cpu, f"card vs cpu {label}")
+    phase("fluid.cpu", runs=len(errs), trace=FLUID_CPU_TRACE, max_rel_err=errs,
+          phase_parts_s=parts(spent))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one NVIDIA GPU", file=sys.stderr)
@@ -2047,6 +2404,20 @@ def main() -> int:
     timed("train.restart", train_restart_phase, get_smoke_config, registry, tr)
     timed("train.no_kernel_grad", no_kernel_grad_phase, kernels, plain, get_smoke_config,
           registry, tr)
+
+    # the fluid simulator at full size: no kernel of this repo on its path
+    free_cuda()
+    fl = fluid_modules()
+    fig9 = timed("fluid.trace", fluid_trace_phase, fl)
+    fig9_rows = timed("fluid.fig9", fluid_fig9_phase, fl, fig9)
+    timed("fluid.sweep", fluid_sweep_phase, fl, fig9, fig9_rows)
+    timed("fluid.fleet", fluid_fleet_phase, fl, fig9)
+    timed("fluid.telemetry", fluid_telemetry_phase, fl, fig9, fig9_rows)
+    timed("fluid.history", fluid_history_phase, fl, fig9, fig9_rows)
+    del fig9
+    free_cuda()
+    timed("fluid.planet", fluid_planet_phase, fl)
+    timed("fluid.cpu", fluid_cpu_phase, fl)
 
     def per_path(name):
         return {p: n[name] for p, n in paths.items()}

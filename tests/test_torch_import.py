@@ -17,6 +17,8 @@ import torch
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.control_plane import TorchWorkerBackend
+from repro_torch.core.simtorch import JaxPolicy, simulate, simulate_chunked
+from repro_torch.core.trace import TraceConfig, synthesize
 from repro_torch.device import resolve_device
 from repro_torch.serving.engine import ModelReplica
 
@@ -41,6 +43,10 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert "repro_torch.kernels.flash_attention.ops" in mods
     assert "repro_torch.kernels.rwkv6_scan.ops" in mods
     assert "repro_torch.models.rwkv6" in mods
+    assert "repro_torch.core.simtorch" in mods
+    assert "repro_torch.core.policy_api" in mods
+    assert "repro_torch.core.trace" in mods
+    assert "repro_torch.fleet.billing" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -82,4 +88,11 @@ def test_no_device_means_cuda_or_raise():
         ModelReplica(cfg, max_slots=1, max_seq=8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TorchWorkerBackend(cfg, max_slots=1, max_seq=8)
+    trace = synthesize(TraceConfig(num_functions=3, duration_s=20, target_total_rps=1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        simulate(trace, JaxPolicy(kind=0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        simulate_chunked(trace, JaxPolicy(kind=0))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        simulate_chunked(trace, JaxPolicy(kind=0), device="cuda")
     assert resolve_device("cpu") == torch.device("cpu")
