@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, prefill, training and fluid-simulator paths once on one NVIDIA GPU, and check them.
+"""Drive the PyTorch/CUDA port's serving, prefill, training, fluid-simulator and scenario paths once on one NVIDIA GPU, and check them.
 
     python3 chip_smoke.py
 
@@ -129,6 +129,23 @@ card's name and power limit as nvidia-smi gives them on a line of its own):
                   row); fluid.planet (fig9_planet's 100,000 functions through
                   the float32 slowdown solver); fluid.cpu (every family with
                   and without a fleet, the card against the CPU)
+  scenario.*      the scenario and cells layers (repro_torch.scenarios,
+                  repro_torch.cells; no kernel of this repo), held to the JAX
+                  package's rows in tests/data/torch_scenario_jax_rows.json
+                  (written with jax by tests/test_torch_scenario_reference.py):
+                  scenario.full (every registered scenario's fluid leg at
+                  scale 1.0 through run_scenario, fig9_planet clustered at 0.05
+                  rps: wall, ticks/s, peak memory, the runner's wall parts, the
+                  rows and the cells scenarios' cell_rows; fig9_production's
+                  fluid leg is fluid.fig9's sync ka 600 call, whose row stands
+                  in for it; one chunk of region_failover across its failure
+                  under the profiler); scenario.parity (both
+                  engines at 0.25 x, the oracle-vs-fluid bands of the JAX
+                  package's tests); scenario.cells (region_failover again, bit
+                  for bit, and against the CPU; one cell against the plain
+                  engine, bit for bit); scenario.cli (python -m
+                  repro_torch.launch.scenarios and .trace as subprocesses,
+                  their exit codes and output held to the JAX CLIs')
 Then one JSON line of per-kernel numbers, and last the result line
 ``{"ok": true, "device": {...}}``.  Any failure ends the run non-zero.
 """
@@ -2076,6 +2093,13 @@ def fluid_profile(fl, trace, run: dict) -> dict:
     def chunk():
         with torch.no_grad():
             st._chunk_impl(setup.state, setup.arr[t0:t0 + n], tick0=t0, **setup.chunk_kw)
+    return dict(run=run["name"], **profile_ticks(chunk, n))
+
+
+def profile_ticks(chunk, n: int) -> dict:
+    """``chunk`` (n ticks) run once to warm up, once alone and once under the
+    profiler: launches, device busy and host wall per tick, the idle share,
+    the top device activities."""
     chunk()
     torch.cuda.synchronize()
     t1 = time.monotonic()
@@ -2086,7 +2110,7 @@ def fluid_profile(fl, trace, run: dict) -> dict:
     launches = sum(k.count for k in kern)
     busy_us = covered_us([(s, e) for _, s, e in spans])
     top = sorted(kern, key=lambda k: -k.self_device_time_total)[:6]
-    return dict(run=run["name"], ticks=n, launches=launches,
+    return dict(ticks=n, launches=launches,
                 launches_per_tick=f"{launches / n:.2f}",
                 device_busy_us_per_tick=f"{busy_us / n:.3f}",
                 wall_ms_per_tick=f"{plain * 1e3 / n:.4f}",
@@ -2257,6 +2281,252 @@ def fluid_cpu_phase(fl) -> None:
           phase_parts_s=parts(spent))
 
 
+# the scenario layer and the cells layer (repro_torch.scenarios, repro_torch.cells): no
+# kernel of this repo.  Held to rows written with jax by
+# tests/test_torch_scenario_reference.py: every scenario's fluid row at scale 1.0
+# (fig9_planet clustered at 0.05 rps) with the cells scenarios' cell_rows, the parity bands
+# at 0.25 x with JAX's gaps, and the JAX CLIs' outputs (rows rtol 1e-4, the slowdown 1e-3,
+# CLI text 1e-3 or one unit of the last printed digit)
+SCENARIO_REF = ROOT / "tests" / "data" / "torch_scenario_jax_rows.json"
+SCENARIO_PROFILED = "region_failover"
+SCENARIO_PROFILED_TICKS = 256                # one chunk across the failure, under the profiler
+SCENARIO_FROM_FLUID_FIG9 = "fig9_production"  # its fluid leg is fluid.fig9's sync ka 600 call
+SCENARIO_C1_SCALE = 0.1                      # a one-cell topology against the plain engine
+SCENARIO_CLI_TIMEOUT = 300
+def scenario_modules():
+    from repro_torch import cells, scenarios
+    from repro_torch.cells import fluid as cells_fluid
+    from repro_torch.cells import topology
+    from repro_torch.core import simtorch
+    from repro_torch.core.eventsim import SimConfig
+    from repro_torch.core.runspec import RunSpec
+    from repro_torch.scenarios import runner, spec
+    ref = json.loads(SCENARIO_REF.read_text())
+    return types.SimpleNamespace(
+        sc=scenarios, cells=cells, fluid=cells_fluid, topology=topology, st=simtorch,
+        runner=runner, spec=spec, SimConfig=SimConfig, RunSpec=RunSpec, ref=ref,
+        tol=ref["tolerances"])
+
+
+def scenario_run(sm, name, spec):
+    """run_scenario on the card -> (rows, detail, wall s, peak bytes)."""
+    detail: dict = {}
+    base = start_peak()
+    t0 = time.monotonic()
+    rows = sm.sc.run_scenario(name, detail=detail, spec=spec, device=DEVICE)
+    torch.cuda.synchronize()
+    return rows, detail, time.monotonic() - t0, peak_above(base)
+
+
+def hold_scenario_row(sm, got: dict, want: dict, label: str) -> str:
+    """The row's meta fields equal, its metrics within the reference's
+    tolerances -> the largest relative errors (see hold_fluid_row)."""
+    got = {k: v for k, v in got.items() if k != "wall_s"}
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: keys {sorted(got)} against {sorted(want)}")
+    meta = [k for k, v in want.items() if not isinstance(v, float)]
+    for k in meta:
+        if got[k] != want[k]:
+            raise AssertionError(f"{label}: {k} = {got[k]!r} against {want[k]!r}")
+    return hold_fluid_row({k: got[k] for k in want if k not in meta},
+                          {k: want[k] for k in want if k not in meta},
+                          sm.tol["row_rtol"], sm.tol["slowdown_rtol"], label)
+
+
+def hold_cell_rows(sm, got: list, want: list, label: str) -> float:
+    """Every per-cell attribution field within the row tolerance -> the largest
+    relative error."""
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} cells against {len(want)}")
+    worst = 0.0
+    for g, w in zip(got, want):
+        if g.keys() != w.keys():
+            raise AssertionError(f"{label}: cell keys {sorted(g)} against {sorted(w)}")
+        for k, v in w.items():
+            rel = abs(g[k] - v) / max(abs(v), 1e-12)
+            if not (rel <= sm.tol["row_rtol"] or abs(g[k] - v) <= 1e-9):
+                raise AssertionError(f"{label}: cell {w['cell']} {k} = {g[k]!r} against {v!r}")
+            worst = max(worst, rel)
+    return worst
+
+
+def scenario_profile(sm, name: str) -> dict:
+    """One chunk of the cells scenario's fluid leg under the profiler, from a
+    fresh state: SCENARIO_PROFILED_TICKS measured ticks, half before and half
+    after region_failover's cell dies: launches, busy and wall a tick, the idle
+    share."""
+    sc = sm.sc.get_scenario(name)
+    traces = sm.cells.build_cell_traces(sc, 1.0)
+    pol = sc.policy.to_jax()
+    run = sm.fluid._cells_setup(
+        traces, sc.cells, pol, sm.st.stack_params([pol.params()]),
+        np.asarray([sc.fleet.params()], np.float32), sim=sm.SimConfig(tick_s=sc.policy.tick_s),
+        dt=sc.policy.tick_s, num_nodes=sc.num_nodes, provision_s=sc.fleet.provision_s,
+        has_fleet=True, chunk_ticks=SCENARIO_PROFILED_TICKS, warmup_frac=0.5, nbins=256,
+        device=DEVICE)
+    n = SCENARIO_PROFILED_TICKS
+    t0 = max(run.chunk_kw["fail_tick"] - n // 2, run.chunk_kw["warm_tick"])
+
+    def chunk():
+        with torch.no_grad():
+            sm.fluid._cells_chunk_impl(run.state, run.arr[t0:t0 + n], t0, **run.chunk_kw)
+    return dict(run=name, cells=sc.cells.cell_count, first_tick=t0,
+                fail_tick=run.chunk_kw["fail_tick"], **profile_ticks(chunk, n))
+
+
+def scenario_full_phase(sm, fig9_rows: dict) -> None:
+    """Every registered scenario's fluid leg at scale 1.0 through run_scenario
+    (fig9_planet clustered at 0.05 rps), each row held to the JAX package's, the
+    cells scenarios' cell_rows too; one chunk of region_failover profiled.
+    fig9_production's fluid leg is fluid.fig9's sync ka 600 call (the two rows
+    were equal bit for bit on the card, PERF.md): that row stands in for it."""
+    spent = {}
+    for run in sm.ref["full"]:
+        name = run["name"]
+        if name == SCENARIO_FROM_FLUID_FIG9:
+            row = fig9_rows[FLUID_PROFILED_RUN]
+            err = hold_fluid_row(row, {k: run["row"][k] for k in row}, sm.tol["row_rtol"],
+                                 sm.tol["slowdown_rtol"], name)
+            phase("scenario.full", run=name, row_of=f"fluid.fig9 {FLUID_PROFILED_RUN}",
+                  slowdown_geomean_p99=row["slowdown_geomean_p99"],
+                  creation_rate=f"{row['creation_rate']:.6g}", max_rel_err_vs_jax=err)
+            continue
+        sc = sm.sc.get_scenario(name)
+        spec = sm.RunSpec(scale=run["scale"], engines=tuple(run["engines"]),
+                          cluster=run["cluster"])
+        with part(spent, name):
+            rows, detail, wall, peak = scenario_run(sm, name, spec)
+        row = rows[0]
+        err = hold_scenario_row(sm, row, run["row"], name)
+        extra = {}
+        if run["cell_rows"] is not None:
+            worst = hold_cell_rows(sm, detail["cell_rows"], run["cell_rows"], name)
+            extra["cell_rows_max_rel_err"] = f"{worst:.3g}"
+        ticks = int(np.ceil(sc.scaled_config(run["scale"]).duration_s / sc.policy.tick_s))
+        fluid_line("scenario.full", name, row, wall, peak, ticks, row["num_functions"],
+                   functions=row["num_functions"], invocations=row["invocations"],
+                   cells=sc.cells.cell_count if sc.cells is not None else 1,
+                   fleet=sc.fleet is not None, cluster=run["cluster"],
+                   creation_rate=f"{row['creation_rate']:.6g}", max_rel_err_vs_jax=err,
+                   wall_parts_s=detail["wall_parts_s"], **extra)
+    with part(spent, "profile"):
+        prof = scenario_profile(sm, SCENARIO_PROFILED)
+    phase("scenario.full.profile", **prof)
+    phase("scenario.full", runs=len(sm.ref["full"]), phase_parts_s=parts(spent))
+
+
+def scenario_parity_phase(sm) -> dict:
+    """Both engines at 0.25 x on the card (the oracle on its host), held to the
+    oracle-vs-fluid bands the JAX package's tests hold, JAX's own gaps beside
+    -> the rows by scenario."""
+    spent, out = {}, {}
+    for name, band in sm.ref["parity"].items():
+        with part(spent, name):
+            rows, _, wall, _ = scenario_run(sm, name, sm.RunSpec(scale=sm.ref["parity_scale"]))
+        if [r["engine"] for r in rows] != ["eventsim", "simjax"]:
+            raise AssertionError(f"parity {name}: engines {[r['engine'] for r in rows]}")
+        out[name] = rows
+        gaps = sm.sc.parity_report(rows)
+        bad = {k: gaps[k] for k in band["keys"] if not gaps[k] <= band["band"]}
+        if bad:
+            raise AssertionError(f"parity {name}: {bad} over the band {band['band']}")
+        phase("scenario.parity", run=name, scale=sm.ref["parity_scale"], band=band["band"],
+              keys=",".join(band["keys"]), gaps={k: f"{v:.4f}" for k, v in gaps.items()},
+              jax_gaps={k: f"{v:.4f}" for k, v in band["jax_gaps"].items()},
+              oracle_wall_s=rows[0]["wall_s"], fluid_wall_s=rows[1]["wall_s"],
+              wall_s=f"{wall:.3f}")
+    phase("scenario.parity", runs=len(sm.ref["parity"]), phase_parts_s=parts(spent))
+    return out
+
+
+def scenario_cells_phase(sm, parity: dict) -> None:
+    """region_failover's fluid leg at scenario.parity's scale again, on the card
+    and on the CPU: the card's row equal bit for bit to scenario.parity's (two card
+    runs) and within the row tolerances of the CPU's; a one-cell topology at
+    SCENARIO_C1_SCALE on the card equal to the plain engine's row on the card."""
+    spent = {}
+    name = SCENARIO_PROFILED
+    sc = sm.sc.get_scenario(name)
+    sim = sm.SimConfig(tick_s=sc.policy.tick_s)
+    traces = sm.cells.build_cell_traces(sc, sm.ref["parity_scale"])
+    with part(spent, "card"):
+        card = sm.fluid.run_cells_fluid(sc, traces, sim, device=DEVICE)
+    first = parity[name][1]
+    if {k: first[k] for k in card} != card:
+        diff = {k: (v, first[k]) for k, v in card.items() if v != first[k]}
+        raise AssertionError(f"{name}: two card runs differ: {diff}")
+    with part(spent, "cpu"):
+        cpu = sm.fluid.run_cells_fluid(sc, traces, sim, device="cpu")
+    err = hold_fluid_row(card, cpu, sm.tol["row_rtol"], sm.tol["slowdown_rtol"], "card vs cpu")
+    one = dataclasses.replace(sc, cells=sm.cells.CellTopology(cell_count=1))
+    traces = sm.cells.build_cell_traces(one, SCENARIO_C1_SCALE)
+    with part(spent, "one_cell"):
+        cells_row = sm.fluid.run_cells_fluid(one, traces, sim, device=DEVICE)
+        plain_row = sm.st.simulate_chunked(traces[0], sc.policy.to_jax(), sim=sim,
+                                           dt=sim.tick_s, num_nodes=sc.num_nodes,
+                                           fleet=sc.fleet, chunk_ticks=sc.chunk_ticks,
+                                           device=DEVICE)
+    if cells_row != plain_row:
+        diff = {k: (v, plain_row[k]) for k, v in cells_row.items() if v != plain_row[k]}
+        raise AssertionError(f"one cell against the plain engine: {diff}")
+    phase("scenario.cells", run=name, scale=sm.ref["parity_scale"],
+          one_cell_scale=SCENARIO_C1_SCALE,
+          again_equals_parity_run_bit_for_bit=True, one_cell_equals_plain_bit_for_bit=True,
+          card_vs_cpu_max_rel_err=err, phase_parts_s=parts(spent))
+
+
+def scenario_cli_phase(sm) -> None:
+    """The port's CLIs as a user runs them, on the card, side by side: exit code,
+    standard output and error (walls aside) and the trace's ledger.json held to
+    what the JAX CLIs print for the same arguments."""
+    out_root = ROOT / "build" / "scenario_cli"
+    shutil.rmtree(out_root, ignore_errors=True)
+    out_root.mkdir(parents=True)
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src") + (os.pathsep + path if path else ""))
+    from repro_torch.launch.clitext import same_text, without_walls
+    tol = sm.tol["cli_rtol"]
+    procs = []
+    try:
+        for i, cli in enumerate(sm.ref["cli"]):
+            out_dir = out_root / f"out{i}"
+            argv = [str(out_dir) if a == "{OUT}" else a for a in cli["argv"]]
+            cmd = [sys.executable, "-m", f"repro_torch.launch.{cli['module']}", *argv]
+            procs.append((cli, out_dir, time.monotonic(),
+                          subprocess.Popen(cmd, env=env, cwd=out_root, text=True,
+                                           stdout=subprocess.PIPE, stderr=subprocess.PIPE)))
+        for cli, out_dir, t0, proc in procs:
+            stdout, stderr = proc.communicate(timeout=SCENARIO_CLI_TIMEOUT)
+            wall = time.monotonic() - t0
+            stdout = stdout.replace(str(out_dir), "{OUT}")
+            stderr = stderr.replace(str(out_dir), "{OUT}")
+            label = f"cli {cli['name']}"
+            if proc.returncode != cli["rc"]:
+                raise AssertionError(f"{label}: exit {proc.returncode}, the JAX CLI's "
+                                     f"{cli['rc']}; stderr {stderr[-2000:]}")
+            if not same_text(without_walls(stdout), without_walls(cli["stdout"]), tol):
+                raise AssertionError(f"{label}: stdout\n{stdout}\nagainst\n{cli['stdout']}")
+            if not same_text(stderr, cli["stderr"], tol):
+                raise AssertionError(f"{label}: stderr\n{stderr}\nagainst\n{cli['stderr']}")
+            extra = {}
+            if "ledger" in cli:
+                ledger = json.loads((out_dir / "ledger.json").read_text())
+                for r in ledger["rows"]:
+                    r.pop("wall_s")
+                if not same_text(json.dumps(ledger), json.dumps(cli["ledger"]), tol):
+                    raise AssertionError(f"{label}: ledger.json differs from the JAX CLI's")
+                extra["ledger_failures"] = len(ledger["failures"])
+            phase("scenario.cli", run=cli["name"], argv=" ".join(cli["argv"]),
+                  rc=proc.returncode, jax_rc=cli["rc"], wall_s=f"{wall:.2f}",
+                  stdout_lines=len(stdout.splitlines()), stderr=repr(stderr.strip()[-160:]),
+                  **extra)
+    finally:
+        for _, _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one NVIDIA GPU", file=sys.stderr)
@@ -2418,6 +2688,14 @@ def main() -> int:
     free_cuda()
     timed("fluid.planet", fluid_planet_phase, fl)
     timed("fluid.cpu", fluid_cpu_phase, fl)
+
+    # the scenario and cells layers: every registered scenario, no kernel of this repo
+    free_cuda()
+    sm = scenario_modules()
+    timed("scenario.full", scenario_full_phase, sm, fig9_rows)
+    parity = timed("scenario.parity", scenario_parity_phase, sm)
+    timed("scenario.cells", scenario_cells_phase, sm, parity)
+    timed("scenario.cli", scenario_cli_phase, sm)
 
     def per_path(name):
         return {p: n[name] for p, n in paths.items()}

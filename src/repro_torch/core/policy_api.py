@@ -60,7 +60,8 @@ class AxisSpec:
 class PolicyObs(NamedTuple):
     """What one simulated tick shows a policy: (F,) tensors for one point,
     (P, F) for a batch of points (``lam`` and ``gap_p99`` may stay (F,) or
-    (1, F); the two gap tables are (F, K) and shared by every point)."""
+    (1, F); the two gap tables are (F, K) and shared by every point, or
+    (P, F, K), one a row, as the cells layer gives them)."""
     arr: Any            # arrivals this tick
     queue: Any          # backlog after dispatch
     inst: Any           # warm instances
@@ -144,7 +145,7 @@ def _interp_table(tab, ka):
     """Per-function linear interpolation of a (F, K) gap table over KA_GRID
     at the keepalive ``ka`` (0-d, (F,), (P, 1) or (P, F)); piecewise-linear,
     so the expiry flux stays differentiable w.r.t. the keepalive."""
-    return _interp_at(tab, *_interp_weights(tab.shape[0], ka, tab.device))
+    return _interp_at(tab, *_interp_weights(tab.shape[-2], ka, tab.device))
 
 
 def empirical_expiry_rate(obs: PolicyObs, ka):
@@ -154,7 +155,7 @@ def empirical_expiry_rate(obs: PolicyObs, ka):
     inst = _max(obs.inst, 1.0)
     ka_arg = ka / inst
     # both tables are read at the same keepalive: one grid lookup
-    at = _interp_weights(obs.alive_tab.shape[0], ka_arg, inst.device)
+    at = _interp_weights(obs.alive_tab.shape[-2], ka_arg, inst.device)
     e_alive = inst * _interp_at(obs.alive_tab, *at)
     p_tail = _interp_at(obs.tail_tab, *at)
     return p_tail / _max(e_alive, 1e-9)

@@ -27,7 +27,7 @@ partials into float64 numpy accumulators.  A run is read back once.
 
 The step writes no tensor in place (the window ring is rebuilt each tick),
 so autograd can differentiate through it: the learned policy's training
-(ROADMAP Queue 1 item 10) takes this engine's gradient.  The chunk's
+(ROADMAP Queue 1 item 4) takes this engine's gradient.  The chunk's
 histogram and telemetry slots lie outside the step and take their adds in
 place; those adds stay differentiable, as their backward reads no input.
 
@@ -177,10 +177,19 @@ def _make_step(arrivals, dur, mem, billed_w, lam0, gaps, gap_tab, pol, fleet,
     step's ``tick`` a Python int row of it; ``dur``, ``mem``, ``billed_w``,
     ``lam0`` and ``gaps`` are (F,), ``gap_tab`` the two (F, K) tables,
     ``pol`` the params tree with a leading point axis ((P, 1) knobs),
-    ``fleet`` (P, 7), ``cpu_consts`` and ``static_nodes`` Python floats.
-    ``weights`` (F,) is the super-function multiplicity of a clustered
-    trace: every cross-function sum is weighted by it (``None`` emits the
-    unweighted ops).  See ``repro.core.simjax._make_step`` for the model."""
+    ``fleet`` (P, 7), ``cpu_consts`` Python floats and ``static_nodes`` a
+    Python float.  ``weights`` (F,) is the super-function multiplicity of a
+    clustered trace: every cross-function sum is weighted by it (``None``
+    emits the unweighted ops).  See ``repro.core.simjax._make_step`` for the
+    model.
+
+    The cells layer (``repro_torch.cells.fluid``) runs one row a (point,
+    cell): ``lam0``, ``gaps`` and the gap tables then carry a leading row
+    axis ((P·C, F), (P·C, F, K)), ``static_nodes`` is a (P·C, 1) tensor, and
+    each tick passes the step its routed (P·C, F) arrivals as ``arr`` and,
+    where triggers or a failure move them, the fleet's (min, max) node
+    bounds as ``bounds``.  Left at ``None``, the step reads ``arrivals[tick]``
+    and the fleet's own bounds: the same operations on the same values."""
     f = dur.shape[0]
     points = fleet.shape[0]
     dev = dur.device
@@ -211,8 +220,8 @@ def _make_step(arrivals, dur, mem, billed_w, lam0, gaps, gap_tab, pol, fleet,
         unit = util_t * node_mem
         cool_reset = torch.ceil(cool_s / dt)
     else:
-        static_billed = torch.full((points, 1), float(static_nodes), dtype=F32,
-                                   device=dev)
+        static_billed = static_nodes if isinstance(static_nodes, torch.Tensor) \
+            else torch.full((points, 1), float(static_nodes), dtype=F32, device=dev)
         wfloor = c_wfloor_node * static_billed * dt
     if has_spot:
         notice = fleet[:, 6:7]
@@ -228,11 +237,12 @@ def _make_step(arrivals, dur, mem, billed_w, lam0, gaps, gap_tab, pol, fleet,
     def add_last(pipe, v):             # pipe[..., -1:] += v (the slot is empty)
         return torch.cat([pipe[..., :-1], v], -1)
 
-    def step(state, tick):
+    def step(state, tick, arr=None, bounds=None):
         (inst, in_service, queue, starting, win, wcur,
          nodes, pipe, cool, nodes_spot, pipe_spot, spot_inst,
          evict_deficit) = state
-        arr = arrivals[tick]
+        if arr is None:
+            arr = arrivals[tick]
 
         if has_fleet:
             # provisioning completes
@@ -350,7 +360,8 @@ def _make_step(arrivals, dur, mem, billed_w, lam0, gaps, gap_tab, pol, fleet,
             pressure = _max(req_mb * (1.0 - scale), 0.0)
             needed = torch.ceil((used + pressure) / unit - 1e-9)
             warm = torch.ceil(warm_f * _max(needed, 1.0) - 1e-9)
-            desired_n = torch.minimum(torch.maximum(needed + warm, min_n), max_n)
+            lo, hi = (min_n, max_n) if bounds is None else bounds
+            desired_n = torch.minimum(torch.maximum(needed + warm, lo), hi)
             if has_spot:
                 desired_spot = torch.round(desired_n * pol["spot_fraction"])
                 desired_od = desired_n - desired_spot
@@ -927,7 +938,7 @@ def _acc_summary(hist, arrtot, sums, n, edges, dur_median, dur_sigma, warm,
 _MULTI_DEVICE = ("RunSpec(devices={d}) shards the chunked run over {d} devices "
                  "(repro.core.simjax._chunk_batch_fnshard_impl and the point-axis "
                  "mesh); the port runs on one device until that is ported "
-                 "(ROADMAP Queue 1 item 11)")
+                 "(ROADMAP Queue 1 item 5)")
 
 
 @dataclasses.dataclass

@@ -47,6 +47,12 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert "repro_torch.core.policy_api" in mods
     assert "repro_torch.core.trace" in mods
     assert "repro_torch.fleet.billing" in mods
+    for mod in ("scenarios", "scenarios.runner", "scenarios.registry", "scenarios.spec",
+                "scenarios.transforms", "scenarios.cluster", "cells", "cells.fluid",
+                "cells.traffic", "cells.topology", "cells.triggers", "cells.oracle",
+                "cells.family", "launch.flags", "launch.scenarios", "launch.trace",
+                "launch.clitext"):
+        assert f"repro_torch.{mod}" in mods, mod
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -95,4 +101,9 @@ def test_no_device_means_cuda_or_raise():
         simulate_chunked(trace, JaxPolicy(kind=0))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         simulate_chunked(trace, JaxPolicy(kind=0), device="cuda")
+    from repro_torch.core.runspec import RunSpec
+    from repro_torch.scenarios import run_scenario
+    for name in ("diurnal", "region_failover"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run_scenario(name, spec=RunSpec(scale=0.1, engines=("simjax",)))
     assert resolve_device("cpu") == torch.device("cpu")

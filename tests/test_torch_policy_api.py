@@ -31,16 +31,16 @@ FAMILIES = ["sync", "async", "hybrid", "learned", "spot_aware"]
 
 
 def test_registry_metadata_equals_jax():
-    # importing repro.cells (another test module in the same process may)
-    # adds its "cells" family to the JAX registry; the cells layer is not
-    # ported yet, so the port's registry holds policy_api's five
-    assert T.list_families() == sorted(FAMILIES)
-    assert set(FAMILIES) <= set(J.list_families())
-    assert T.sweepable_policy_axes() == set().union(
-        *(J.get_family(name).sweepable_axes() for name in FAMILIES))
+    # importing either cells package registers its "cells" family (another
+    # test module in the same process may have done so already): import
+    # both, and the two registries hold the same six families
+    import repro.cells  # noqa: F401
+    import repro_torch.cells  # noqa: F401
+    assert T.list_families() == J.list_families() == sorted(FAMILIES + ["cells"])
+    assert T.sweepable_policy_axes() == J.sweepable_policy_axes()
     assert T.HYBRID_MIN_KA_S == J.HYBRID_MIN_KA_S
     assert dataclasses.asdict(T.CC_AXIS) == dataclasses.asdict(J.CC_AXIS)
-    for name in FAMILIES:
+    for name in FAMILIES + ["cells"]:
         a, b = J.get_family(name), T.get_family(name)
         for attr in ("name", "kind", "synchronous_tail", "cold_factor", "uses_window"):
             assert getattr(a, attr) == getattr(b, attr), (name, attr)

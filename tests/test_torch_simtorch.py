@@ -203,7 +203,7 @@ def test_async_ceil_at_an_exact_integer_follows_the_division_order():
 
 
 def test_more_than_one_device_is_not_ported(trace):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         T.simulate_chunked(trace, T.JaxPolicy(kind=0), spec=TRunSpec(devices=2), device="cpu")
     # one device is the unsharded run, as in the JAX package
     one = T.simulate_chunked(trace, T.JaxPolicy(kind=0), spec=TRunSpec(devices=1), device="cpu")
