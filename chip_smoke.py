@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, prefill, training, fluid-simulator and scenario paths once on one NVIDIA GPU, and check them.
+"""Drive the PyTorch/CUDA port's serving, prefill, training, fluid-simulator, scenario and optimizer paths once on one NVIDIA GPU, and check them.
 
     python3 chip_smoke.py
 
@@ -146,6 +146,27 @@ card's name and power limit as nvidia-smi gives them on a line of its own):
                   engine, bit for bit); scenario.cli (python -m
                   repro_torch.launch.scenarios and .trace as subprocesses,
                   their exit codes and output held to the JAX CLIs')
+  opt.*           the optimizer (repro_torch.opt, scenarios.runner.frontier,
+                  launch/frontier.py; no kernel of this repo), held to the
+                  JAX package's numbers in tests/data/torch_opt_jax_rows.json
+                  (written with jax by tests/test_torch_opt_reference.py):
+                  opt.frontier (runner.frontier on fleet_cost_stress and
+                  region_failover at scale 1.0, DEFAULT_SPACE coarse at 0.1 x,
+                  the pooled survivors refined at 1.0 x: every row, the
+                  fronts' and robust ids, the hypervolumes; each stage's wall
+                  by scenario, the peak memory, one chunk of a refine batch
+                  under the profiler); opt.evo (the NSGA-II search on
+                  fleet_cost_stress at 0.25 x, budget 64, seed 0: the
+                  candidates in order, the gradient endgame's within
+                  evo_grad_rtol; the budget, the refined rows, the
+                  hypervolume; generations, pairs, the gradient seconds);
+                  opt.learned (the surrogate loss at init_theta(0) on
+                  fleet_cost_stress at 0.25 x, its value and gradient held and
+                  timed, forward and backward profiled; train_policy for 3
+                  steps, evaluate_trained and confirm held); opt.cli (python
+                  -m repro_torch.launch.frontier as a subprocess: the smoke's
+                  exit code and artifacts held to the JAX CLI's, --algo nope
+                  exits 2)
 Then one JSON line of per-kernel numbers, and last the result line
 ``{"ok": true, "device": {...}}``.  Any failure ends the run non-zero.
 """
@@ -713,7 +734,7 @@ class KernelStat:
     self_device_time_total: float = 0.0
 
 
-def device_kernels(fn, reps: int = 1, ranges: dict | None = None):
+def device_kernels(fn, reps: int = 1, ranges: dict | None = None, cpu: bool = True):
     """Run fn reps times under the profiler -> (host wall s per rep, the
     device activities (kernels, copies, fills) by name as KernelStat, and
     each one's (name, start, end) on the device in us; both empty if it saw
@@ -724,9 +745,12 @@ def device_kernels(fn, reps: int = 1, ranges: dict | None = None):
     range's calls, its host time, and its device time: the union of the
     activities inside the device-side spans the profiler gives the range
     (from the first to the last activity launched in it; one stream, so
-    nothing else runs there), in us."""
+    nothing else runs there), in us.  ``cpu=False`` records the device's
+    activity alone (no range can be read then): a third of the events to
+    read back after hundreds of thousands of launches."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if cpu else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         for _ in range(reps):
             fn()
@@ -1975,7 +1999,9 @@ def parts(spent: dict) -> dict:
 
 def start_peak() -> int:
     """Reset the peak counter -> the bytes already allocated (what earlier
-    phases still hold), which ``peak_above`` subtracts."""
+    phases still hold), which ``peak_above`` subtracts.  Garbage is collected
+    first: tensors it frees later would make the peak read low."""
+    gc.collect()
     torch.cuda.reset_peak_memory_stats()
     return torch.cuda.memory_allocated()
 
@@ -2527,6 +2553,406 @@ def scenario_cli_phase(sm) -> None:
                 proc.communicate()
 
 
+# the optimizer (repro_torch.opt, repro_torch.fleet.sweep, scenarios.runner.frontier,
+# launch/frontier.py): no kernel of this repo (the JAX package's search, evo and learned
+# policy reach only the fluid engine's lax.scan).  Held to numbers written with jax by
+# tests/test_torch_opt_reference.py: the grid frontier's rows, fronts and hypervolumes on
+# fleet_cost_stress and region_failover at scale 1.0, the evo run's candidates, the learned
+# policy's loss, gradient and training, and the JAX CLI's artifacts
+OPT_REF = ROOT / "tests" / "data" / "torch_opt_jax_rows.json"
+OPT_PROFILED = "fleet_cost_stress"           # its refine batch, one chunk under the profiler
+OPT_PROFILED_TICKS = 128
+OPT_CLI_TIMEOUT = 300
+
+
+def opt_modules():
+    from repro_torch.core.eventsim import SimConfig
+    from repro_torch.core.policies import init_theta
+    from repro_torch.core.runspec import RunSpec
+    from repro_torch.core import simtorch
+    from repro_torch.fleet import billing
+    from repro_torch.obs import RunTelemetry
+    from repro_torch.opt import EvoConfig, learned, search
+    from repro_torch.scenarios import get_scenario, runner
+    ref = json.loads(OPT_REF.read_text())
+    return types.SimpleNamespace(
+        learned=learned, search=search, EvoConfig=EvoConfig, runner=runner, st=simtorch,
+        billing=billing,
+        get_scenario=get_scenario, SimConfig=SimConfig, RunSpec=RunSpec,
+        RunTelemetry=RunTelemetry, init_theta=init_theta, ref=ref, tol=ref["tolerances"])
+
+
+def hold_opt_rows(om, got: list, want: list, label: str) -> str:
+    """Rows of an optimizer stage: the same keys, the non-numbers (scenario,
+    point ids, sims, ...) equal, every number within the row tolerances (the
+    slowdown within its own), walls aside -> the largest relative errors."""
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} rows against {len(want)}")
+    worst = {"slowdown": 0.0, "rest": 0.0}
+    for g, w in zip(got, want):
+        g = {k: v for k, v in g.items() if k != "stage_wall_s"}
+        if set(g) != set(w):
+            raise AssertionError(f"{label}: keys {sorted(set(g) ^ set(w))} differ")
+        nums = [k for k, v in w.items() if isinstance(v, float)]
+        for k in set(w) - set(nums):
+            if g[k] != w[k]:
+                raise AssertionError(f"{label}: {k} = {g[k]!r} against {w[k]!r}")
+        err = hold_fluid_row({k: float(g[k]) for k in nums}, {k: w[k] for k in nums},
+                             om.tol["row_rtol"], om.tol["slowdown_rtol"], label)
+        s, r = err.split(":")[0].split("/")
+        worst = {"slowdown": max(worst["slowdown"], float(s)), "rest": max(worst["rest"], float(r))}
+    return f"{worst['slowdown']:.3g}/{worst['rest']:.3g}"
+
+
+def hold_hypervolume(om, got: float, want: float, label: str) -> str:
+    rel = abs(got - want) / max(abs(want), 1e-12)
+    if not rel <= om.tol["hv_rtol"]:
+        raise AssertionError(f"{label}: hypervolume {got!r} against {want!r}")
+    return f"{got:.9g} ({rel:.3g})"
+
+
+def refine_batch_profile(om, res, name: str) -> dict:
+    """One chunk of the scenario's refine batch (its deduped survivors at the
+    refine scale, as evaluate_scenario runs them) under the profiler, from a
+    fresh state at the warm-up tick: launches, busy and wall a tick, idle share."""
+    sc = om.get_scenario(name)
+    policy, fleet = sc.policy.to_jax(), om.search.default_fleet(sc)
+    seen, pts = set(), []
+    for pid in sorted({r["point_id"] for r in res.refined[name]}):
+        key = om.search._effective_key(res.points[pid], policy.family)
+        if key not in seen:
+            seen.add(key)
+            pts.append(res.points[pid])
+    pols, fleets = om.search._point_batch(policy, fleet, pts)
+    prof = om.billing.resolve_profile(None, sc.billing)
+    trace = om.billing.apply_throttle(sc.build_trace(res.scale), prof)
+    run = om.st._chunked_setup(trace, policy, pols, fleets,
+                               sim=om.SimConfig(tick_s=sc.policy.tick_s), dt=sc.policy.tick_s,
+                               num_nodes=0, provision_s=fleet.provision_s, has_fleet=True,
+                               chunk_ticks=OPT_PROFILED_TICKS, warmup_frac=0.5, nbins=256,
+                               billing=prof, device=DEVICE)
+    t0, n = run.chunk_kw["warm_tick"], OPT_PROFILED_TICKS
+
+    def chunk():
+        with torch.no_grad():
+            om.st._chunk_impl(run.state, run.arr[t0:t0 + n], tick0=t0, **run.chunk_kw)
+    return dict(run=name, points=len(pts), functions=trace.num_functions,
+                **profile_ticks(chunk, n))
+
+
+def opt_frontier_phase(om) -> None:
+    """runner.frontier on fleet_cost_stress and region_failover at scale 1.0: the
+    CLI's default pipeline (DEFAULT_SPACE coarse at 0.1 x, up to 12 survivors a
+    scenario pooled and refined at 1.0 x, one batch a scenario), no spot-check.
+    Every coarse and refined row held to the JAX package's, the fronts' point ids
+    and the robust ids equal, each scenario's hypervolume at hv_rtol; the wall of
+    each stage and scenario, the peak memory, one chunk of a refine batch profiled."""
+    args, want = om.ref["frontier_args"], om.ref["frontier"]
+    tel = om.RunTelemetry()
+    base = start_peak()
+    t0 = time.monotonic()
+    res, checks = om.runner.frontier(args["scenarios"], spot_check=args["spot_check"],
+                                     coarse_frac=args["coarse_frac"], telemetry=tel,
+                                     spec=om.RunSpec(scale=args["scale"]), device=DEVICE)
+    torch.cuda.synchronize()
+    wall, peak = time.monotonic() - t0, peak_above(base)
+    if checks or res.coarse_scale != want["coarse_scale"] or res.points != want["points"]:
+        raise AssertionError("frontier: the search's candidates or scales differ from JAX's")
+    walls = {f"{e['event'].split('_')[1]}.{e['scenario']}": e["wall_s"]
+             for e in tel.events if e["event"] in ("frontier_coarse", "frontier_refine")}
+    for name in args["scenarios"]:
+        errs = {stage: hold_opt_rows(om, getattr(res, stage)[name], want[stage][name],
+                                     f"frontier {stage} {name}")
+                for stage in ("coarse", "refined")}
+        front = sorted(r["point_id"] for r in res.fronts[name])
+        if front != sorted(want["fronts"][name]):
+            raise AssertionError(f"frontier {name}: front {front} against {want['fronts'][name]}")
+        hv = hold_hypervolume(om, om.search._front_hypervolume(res.refined[name]),
+                              want["hypervolume"][name], f"frontier {name}")
+        phase("opt.frontier", run=name, coarse_sims=res.coarse[name][0]["sims"],
+              refine_sims=res.refined[name][0]["sims"], refined_points=len(res.refined[name]),
+              coarse_wall_s=walls[f"coarse.{name}"], refine_wall_s=walls[f"refine.{name}"],
+              front_ids=front, hypervolume=hv, max_rel_err_vs_jax=errs)
+    if res.robust_ids != want["robust_ids"]:
+        raise AssertionError(f"frontier: robust ids {res.robust_ids} against {want['robust_ids']}")
+    prof = refine_batch_profile(om, res, OPT_PROFILED)
+    phase("opt.frontier.profile", **prof)
+    phase("opt.frontier", scenarios=len(args["scenarios"]), wall_s=f"{wall:.3f}",
+          stage_walls_s=walls, robust_ids=res.robust_ids, peak_mem_bytes=peak)
+
+
+@contextlib.contextmanager
+def timed_refinement(om, spent: dict):
+    """Add the wall seconds of every gradient refinement of the evo engine's
+    endgame (learned.refine_leaves, which it imports at each call) to
+    spent["grad"], and count the calls in spent["grad_calls"]."""
+    plain = om.learned.refine_leaves
+
+    def refine_leaves(*a, **kw):
+        with part(spent, "grad"):
+            out = plain(*a, **kw)
+            torch.cuda.synchronize()
+        spent["grad_calls"] = spent.get("grad_calls", 0) + 1
+        return out
+    om.learned.refine_leaves = refine_leaves
+    try:
+        yield
+    finally:
+        om.learned.refine_leaves = plain
+
+
+def opt_evo_phase(om) -> None:
+    """frontier_search(algo="evo") on fleet_cost_stress: scale 0.25, coarse at
+    fig15's 0.1 x, budget 64 (grad_min_budget: the endgame refines an elite by
+    autograd on the card; one elite, two Adam steps, as the reference file
+    says), seed 0.  The candidates in order equal to JAX's, but
+    those the gradient endgame registered (each a float32 Adam result: within
+    evo_grad_rtol of JAX's; ROADMAP Queue 3); the budget's ledger equal; the refined
+    rows, the robust ids and the hypervolume held."""
+    args, want = om.ref["evo_args"], om.ref["evo"]
+    spent, log = {}, []
+    kw = {k: v for k, v in args.items() if k not in ("scenarios", "evo_config")}
+    kw["evo_config"] = om.EvoConfig(**args["evo_config"])
+    base = start_peak()
+    t0 = time.monotonic()
+    with timed_refinement(om, spent):
+        res = om.search.frontier_search(args["scenarios"], log=log.append, device=DEVICE, **kw)
+    torch.cuda.synchronize()
+    wall, peak = time.monotonic() - t0, peak_above(base)
+    grad_ids = [i for i, p in enumerate(res.points)
+                if any(line.startswith("evo grad: refined point") and str(p) in line
+                       for line in log)]
+    if len(res.points) != len(want["points"]) or grad_ids != want["grad_point_ids"]:
+        raise AssertionError(f"evo: {len(res.points)} candidates (grad {grad_ids}) against "
+                             f"{len(want['points'])} (grad {want['grad_point_ids']})")
+    grad_err = 0.0
+    for i, (p, q) in enumerate(zip(res.points, want["points"])):
+        if i in grad_ids:
+            rel = {k: abs(p[k] - q[k]) / max(abs(q[k]), 1e-12) for k in q}
+            if p.keys() != q.keys() or max(rel.values()) > om.tol["evo_grad_rtol"]:
+                raise AssertionError(f"evo: refined candidate {i} {p} against {q}")
+            grad_err = max(grad_err, *rel.values())
+        elif p != q:
+            raise AssertionError(f"evo: candidate {i} {p} against JAX's {q}")
+    summary = res.budget.summary()
+    if summary != want["budget"]:
+        raise AssertionError(f"evo: budget {summary} against {want['budget']}")
+    name = args["scenarios"][0]
+    err = hold_opt_rows(om, res.refined[name], want["refined"][name], "evo refined")
+    if res.robust_ids != want["robust_ids"]:
+        raise AssertionError(f"evo: robust ids {res.robust_ids} against {want['robust_ids']}")
+    hv = hold_hypervolume(om, om.search._front_hypervolume(res.refined[name]),
+                          want["hypervolume"][name], "evo")
+    phase("opt.evo", run=name, scale=args["scale"], coarse_scale=res.coarse_scale,
+          budget=args["budget"], seed=args["seed"],
+          generations=max(e["generation"] or 0 for e in res.budget.ledger),
+          candidates=len(res.points), pairs_spent=summary["spent"],
+          pairs_recorded=summary["recorded"], by_stage=summary["by_stage"],
+          grad_refinements=spent.get("grad_calls", 0), grad_s=f"{spent.get('grad', 0.0):.3f}",
+          grad_candidates=grad_ids, grad_candidates_max_rel_err=f"{grad_err:.3g}",
+          refined_max_rel_err_vs_jax=err, hypervolume=hv, robust_ids=res.robust_ids,
+          wall_s=f"{wall:.3f}", peak_mem_bytes=peak)
+
+
+def hold_grad(om, got: dict, want: dict) -> dict:
+    """Each gradient leaf within grad_leaf_frac of its largest entry -> the
+    error as a share of that entry, by leaf."""
+    out = {}
+    for k, w in want.items():
+        g, w = np.asarray(got[k].detach().cpu(), np.float64), np.asarray(w, np.float64)
+        err, top = float(np.abs(g - w).max()), float(np.abs(w).max())
+        if not err <= om.tol["grad_leaf_frac"] * top:
+            raise AssertionError(f"learned: d loss / d {k} = {g} against {w}")
+        out[k] = f"{err / top:.3g}" if top > 0 else "0 (zero leaf)"
+    return out
+
+
+def opt_learned_phase(om) -> None:
+    """The learned policy on fleet_cost_stress at 0.25 x (fig11's scenario and
+    training scale; 900 ticks, 75 functions, a fleet): make_loss at init_theta(0),
+    its forward and its backward each under the profiler (the device's activity
+    alone), the loss and each gradient leaf held to JAX's (loss_rtol; within
+    grad_leaf_frac of the leaf's largest entry); then train_policy for 3 steps (the
+    history and the trained theta held; its wall over its 4 value-and-grads is the
+    seconds of one), evaluate_trained and confirm at 0.25 x held to JAX's."""
+    args, want = om.ref["learned_args"], om.ref["learned"]
+    L = om.learned
+    sc = om.get_scenario(args["scenario"])
+    spent, held, prof = {}, {}, {}
+    spec = dataclasses.replace(sc.policy, kind="learned", theta=om.init_theta(args["seed"]))
+    sim = om.SimConfig(tick_s=sc.policy.tick_s)
+    base = start_peak()
+    with part(spent, "make_loss"):
+        trace = om.billing.apply_throttle(sc.build_trace(args["scale"]), sc.billing)
+        loss_fn, params0 = L.make_loss(trace, spec.to_jax(), sim=sim, dt=sim.tick_s,
+                                       fleet=om.search.default_fleet(sc), billing=sc.billing,
+                                       device=DEVICE)
+    frozen = {k: v for k, v in params0.items() if k != "theta"}
+    theta = {"theta": L._tree_map(lambda x: L._trainable(x, DEVICE), params0["theta"])}
+    leaves = L._tree_leaves(theta)
+
+    def forward():
+        held["loss"] = loss_fn({**frozen, **theta})
+
+    def backward():
+        held["grad"] = torch.autograd.grad(held["loss"], leaves)
+    for label, fn in (("forward", forward), ("backward", backward)):
+        with part(spent, label):
+            wall, kern, spans = device_kernels(fn, cpu=False)
+        launches = sum(k.count for k in kern)
+        busy = covered_us([(s, e) for _, s, e in spans])
+        prof[label] = dict(launches=launches, launches_per_tick=f"{launches / want['ticks']:.1f}",
+                           device_busy_ms=f"{busy / 1e3:.2f}", profiled_wall_s=f"{wall:.3f}",
+                           idle_share=f"{1.0 - busy / (wall * 1e6):.4f}")
+    peak = peak_above(base)
+    loss = float(held["loss"].detach())
+    grad = L._tree_unflatten(theta, held.pop("grad"))
+    del held["loss"]
+    rel = abs(loss - want["loss"]) / abs(want["loss"])
+    if not rel <= om.tol["loss_rtol"]:
+        raise AssertionError(f"learned: loss {loss!r} against {want['loss']!r}")
+    grad_err = hold_grad(om, grad["theta"], want["grad"])
+    with part(spent, "train_policy"):
+        res = L.train_policy(args["scenario"], scale=args["scale"], steps=args["steps"],
+                             seed=args["seed"], device=DEVICE)
+        torch.cuda.synchronize()
+    h = np.asarray(res.history)
+    if len(h) != len(want["history"]) or not np.allclose(h, want["history"],
+                                                         rtol=om.tol["history_rtol"], atol=0):
+        raise AssertionError(f"learned: history {res.history} against {want['history']}")
+    theta_err = max(float(np.abs(np.asarray(res.policy.theta[k], np.float64)
+                                 - np.asarray(v)).max()) for k, v in want["theta"].items())
+    if not theta_err <= om.tol["theta_atol"]:
+        raise AssertionError(f"learned: theta {res.policy.theta} against {want['theta']}")
+    with part(spent, "evaluate_trained"):
+        row = L.evaluate_trained(args["scenario"], res, scale=args["scale"], device=DEVICE)
+    row_err = hold_opt_rows(om, [row], [want["row"]], "learned row")
+    with part(spent, "confirm"):
+        check = L.confirm(args["scenario"], res, scale=args["scale"], device=DEVICE)
+    gaps_err = max(abs(check["gaps"][k] - v) for k, v in want["confirm"]["gaps"].items())
+    if check["pass"] != want["confirm"]["pass"] or not gaps_err <= 1e-3:
+        raise AssertionError(f"learned: confirm {check} against {want['confirm']}")
+    phase("opt.learned", run=args["scenario"], scale=args["scale"], ticks=want["ticks"],
+          functions=want["functions"], loss=f"{loss:.9g}", loss_rel_err=f"{rel:.3g}",
+          grad_err_share_of_leaf_max=grad_err,
+          value_and_grad_s=f"{spent['train_policy'] / len(h):.3f}",
+          forward=prof["forward"], backward=prof["backward"], peak_mem_bytes=peak,
+          history=[f"{x:.7g}" for x in res.history], theta_max_abs_err=f"{theta_err:.3g}",
+          row_max_rel_err_vs_jax=row_err, oracle_pass=check["pass"],
+          oracle_gaps={k: f"{v:.4f}" for k, v in check["gaps"].items()},
+          phase_parts_s=parts(spent))
+
+
+def opt_cli_start(om) -> list:
+    """Start the frontier CLI's runs of the reference file (python -m
+    repro_torch.launch.frontier, on the card) as subprocesses -> (run, out dir,
+    start, process) each, for opt_cli_phase to wait on: they run beside the
+    other opt phases (two processes on one card, each mostly idle), their
+    standard output and error into files of their out dir's parent."""
+    out_root = ROOT / "build" / "opt_cli"
+    shutil.rmtree(out_root, ignore_errors=True)
+    out_root.mkdir(parents=True)
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src") + (os.pathsep + path if path else ""))
+    procs = []
+    try:
+        for i, cli in enumerate(om.ref["cli"]):
+            out_dir = out_root / f"out{i}"
+            argv = [str(out_dir) if a == "{OUT}" else a for a in cli["argv"]]
+            cmd = [sys.executable, "-m", "repro_torch.launch.frontier", *argv]
+            with open(out_root / f"out{i}.stdout", "w") as out, \
+                    open(out_root / f"out{i}.stderr", "w") as err:
+                procs.append((cli, out_dir, time.monotonic(),
+                              subprocess.Popen(cmd, env=env, cwd=out_root, text=True,
+                                               stdout=out, stderr=err)))
+    except BaseException:
+        stop_processes(procs)
+        raise
+    return procs
+
+
+def stop_processes(procs: list) -> None:
+    for *_, proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def opt_cli_phase(om, procs: list) -> None:
+    """Wait for the CLI runs that opt_cli_start began: the smoke's exit code 0,
+    its CSVs (text equal but for numbers, each within cli_rtol or one unit of
+    its last printed digit) and frontier.json (keys and values, walls aside)
+    held to what the JAX CLI wrote; --algo nope exits 2 with the JAX CLI's
+    message.  Each run's wall counts from its start."""
+    from repro_torch.launch.clitext import same_text
+    tol = om.tol["cli_rtol"]
+
+    def same_json(got, want, where: str) -> None:
+        if isinstance(want, dict):
+            if not isinstance(got, dict) or got.keys() != want.keys():
+                raise AssertionError(f"cli {where}: keys {sorted(got)} against {sorted(want)}")
+            for k in want:
+                if k not in ("wall_s", "stage_wall_s"):
+                    same_json(got[k], want[k], f"{where}/{k}")
+        elif isinstance(want, list):
+            if not isinstance(got, list) or len(got) != len(want):
+                raise AssertionError(f"cli {where}: {got!r} against {want!r}")
+            for i, (g, w) in enumerate(zip(got, want)):
+                same_json(g, w, f"{where}/{i}")
+        elif isinstance(want, float):
+            if not abs(got - want) <= max(tol * abs(want), 1e-12):
+                raise AssertionError(f"cli {where}: {got!r} against {want!r}")
+        elif got != want:
+            raise AssertionError(f"cli {where}: {got!r} against {want!r}")
+    try:
+        for cli, out_dir, t0, proc in procs:
+            proc.wait(timeout=OPT_CLI_TIMEOUT)
+            wall = time.monotonic() - t0
+            stderr = out_dir.with_suffix(".stderr").read_text()
+            label = f"cli {cli['name']}"
+            if proc.returncode != cli["rc"]:
+                raise AssertionError(f"{label}: exit {proc.returncode}, the JAX CLI's "
+                                     f"{cli['rc']}; stderr {stderr[-2000:]}")
+            if "stderr" in cli and stderr != cli["stderr"]:
+                raise AssertionError(f"{label}: stderr {stderr!r} against {cli['stderr']!r}")
+            files = sorted(p.name for p in out_dir.glob("*")) if out_dir.exists() else []
+            want_files = sorted([*cli.get("files", {}), *(["frontier.json"]
+                                                         if "frontier_json" in cli else [])])
+            if files != want_files:
+                raise AssertionError(f"{label}: wrote {files}, the JAX CLI {want_files}")
+            for name, text in cli.get("files", {}).items():
+                if not same_text((out_dir / name).read_text(), text, tol):
+                    raise AssertionError(f"{label}: {name} differs from the JAX CLI's")
+            extra = {}
+            if "frontier_json" in cli:
+                got = json.loads((out_dir / "frontier.json").read_text())
+                same_json(got, cli["frontier_json"], "frontier.json")
+                learned = got["learned"][0]
+                extra = dict(learned_loss=[learned["train"]["loss_initial"],
+                                           learned["train"]["loss_final"]],
+                             learned_slack=f"{learned['frontier_slack']:.6g}",
+                             oracle_pass=learned["oracle"]["pass"])
+            phase("opt.cli", run=cli["name"], argv=" ".join(cli["argv"]), rc=proc.returncode,
+                  jax_rc=cli["rc"], wall_s=f"{wall:.2f}", files=files,
+                  stderr_tail=repr(stderr.strip()[-160:]), **extra)
+    finally:
+        stop_processes(procs)
+
+
+def opt_phases(om, timed) -> None:
+    """The opt.* phases, each through ``timed(name, fn, *args)``: the CLI's runs
+    start first and go on beside the other three."""
+    cli = opt_cli_start(om)
+    try:
+        timed("opt.frontier", opt_frontier_phase, om)
+        timed("opt.evo", opt_evo_phase, om)
+        timed("opt.learned", opt_learned_phase, om)
+    except BaseException:
+        stop_processes(cli)
+        raise
+    timed("opt.cli", opt_cli_phase, om, cli)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one NVIDIA GPU", file=sys.stderr)
@@ -2696,6 +3122,11 @@ def main() -> int:
     parity = timed("scenario.parity", scenario_parity_phase, sm)
     timed("scenario.cells", scenario_cells_phase, sm, parity)
     timed("scenario.cli", scenario_cli_phase, sm)
+
+    # the optimizer: grid and evo search, the learned policy, the frontier CLI; no kernel
+    # of this repo
+    free_cuda()
+    opt_phases(opt_modules(), timed)
 
     def per_path(name):
         return {p: n[name] for p, n in paths.items()}

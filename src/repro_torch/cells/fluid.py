@@ -18,8 +18,9 @@ bounds.  The cells layer wraps it:
   cells in cell order, not by a matrix product, so every device adds in
   the same order.
 * FAILOVER: at the (static) failure tick the dying cell's queued and
-  in-flight mass re-queues on survivors along the failover distribution;
-  from then on its state is alive-masked to zero and its fleet bounds
+  in-flight mass re-queues on survivors along the failover distribution
+  (each survivor's share with its subnormal values flushed, as XLA flushes
+  them); from then on its state is alive-masked to zero and its fleet bounds
   collapse to (0, 0), so the dead region bills nothing and contributes
   nothing to the metric sums.  Which cells are alive depends on the tick
   alone, so the masks are made on the host, as the plain engine's window
@@ -56,7 +57,7 @@ from repro_torch.cells.traffic import failover_dist, flux_matrix, spill_fraction
 from repro_torch.core.policy_api import get_family
 from repro_torch.core.simtorch import (_ACC_NAMES, _PFLEET, F32, _acc_summary,
                                        _arrivals_on, _billed_weights, _delay_edges,
-                                       _init_state, _make_step, _params_to,
+                                       _ftz, _init_state, _make_step, _params_to,
                                        _prep_static, _upload, stack_params)
 from repro_torch.core.trace import gap_statistics, rate_matrix
 from repro_torch.device import resolve_device
@@ -173,7 +174,10 @@ def _cells_chunk_impl(state, arr_chunk, tick0: int, *, floor, lam0, gaps, gap_ta
                            thr) * alive_t
         routed = _route(flux_matrix(alive_t, s, free, fail_d), a_t)
         if moved is not None:
-            routed = routed + fail_d[:, :, None] * moved[:, None, :]
+            # a survivor's share of a tiny moved mass can be subnormal: XLA
+            # flushes it (a ghost in-flight mass that never completes and
+            # holds a ceil of the idle count otherwise)
+            routed = routed + _ftz(fail_d[:, :, None] * moved[:, None, :])
         routed = routed.reshape(rows, f)
 
         bounds = None

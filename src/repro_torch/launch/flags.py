@@ -1,7 +1,8 @@
 """Shared CLI flags for the launch entry points.
 
 The launchers (``repro_torch.launch.scenarios``,
-``repro_torch.launch.trace``) accept one common run-configuration vocabulary —
+``repro_torch.launch.trace``, ``repro_torch.launch.frontier``) accept one
+common run-configuration vocabulary —
 ``--scale`` / ``--billing`` / ``--tier`` / ``--devices`` / ``--cluster``
 plus a per-CLI telemetry form, and ``--device`` (where the fluid leg runs) —
 declared HERE once instead of copy-pasted ``add_argument`` blocks.  ``validate_run_flags`` performs the
@@ -14,9 +15,12 @@ These flags map one-to-one onto ``repro_torch.core.runspec.RunSpec`` fields;
 each launcher builds its spec from the parsed namespace and threads it
 through ``run_scenario``.
 
+The frontier launcher adds the search-engine flags (``add_search_flags``:
+``--algo`` / ``--budget`` / ``--seed``), validated by
+``validate_search_flags`` under the same exit-2 contract.
+
 The port of ``repro.launch.flags``.  Devices are counted with
-``torch.cuda.device_count()``.  The search flags (``add_search_flags``,
-``validate_search_flags``) come with the optimizer's port.
+``torch.cuda.device_count()``.
 """
 
 from __future__ import annotations
@@ -116,6 +120,45 @@ def validate_run_flags(args: argparse.Namespace) -> int:
     if args.cluster < 0.0:
         print(f"--cluster must be >= 0 (a mean-rps threshold), got "
               f"{args.cluster}", file=sys.stderr)
+        return 2
+    return 0
+
+
+def add_search_flags(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """Search-engine selection flags (frontier-style launchers): which
+    engine walks the space (``--algo``), how much simulation it may spend
+    (``--budget``), and the seed behind every stochastic choice
+    (``--seed``) — same shared-vocabulary contract as ``add_run_flags``."""
+    ap.add_argument("--algo", default="grid", metavar="ALGO",
+                    help="search engine: 'grid' enumerates the space's "
+                         "cartesian product; 'evo' runs the NSGA-II "
+                         "population optimizer at the same evaluation "
+                         "budget (repro_torch.opt.evo)")
+    ap.add_argument("--budget", type=int, default=None, metavar="N",
+                    help="evo evaluation budget in simulated candidate-"
+                         "scenario pairs (default: exactly what the grid "
+                         "would cost, for a like-for-like comparison; "
+                         "ignored under --algo grid)")
+    ap.add_argument("--seed", type=int, default=0, metavar="S",
+                    help="seed for every stochastic search choice (evo "
+                         "variation, spot-check winner sampling); a seeded "
+                         "run replays bit-for-bit (default 0)")
+    return ap
+
+
+def validate_search_flags(args: argparse.Namespace) -> int:
+    """Friendly-error validation of the search flags: exit-2 contract,
+    printing the registered engines instead of a traceback."""
+    from repro_torch.opt.search import SEARCH_ALGOS
+    if args.algo not in SEARCH_ALGOS:
+        # a friendly listing, not a ValueError traceback
+        print(f"unknown search algo {args.algo!r}", file=sys.stderr)
+        print(f"registered algos: {', '.join(SEARCH_ALGOS)}",
+              file=sys.stderr)
+        return 2
+    if args.budget is not None and args.budget <= 0:
+        print(f"--budget must be a positive candidate-scenario pair count, "
+              f"got {args.budget}", file=sys.stderr)
         return 2
     return 0
 

@@ -18,8 +18,8 @@ methodology of the paper's Fig. 9, generalized to a scenario family.
 The port of ``repro.scenarios.runner``.  ``run_scenario`` and
 ``billed_parity`` take ``device=None`` beside ``spec``: the fluid leg runs
 there (CUDA by default, raising without it; the CPU only when named).  The
-oracle leg is numpy on the host.  ``frontier`` waits for the optimizer's
-port and raises ``NotImplementedError``.
+oracle leg is numpy on the host.  ``frontier`` takes ``device=None`` too
+and runs the port's frontier engine (``repro_torch.opt.search``) there.
 """
 
 from __future__ import annotations
@@ -332,21 +332,45 @@ def billed_parity(scenario: Union[str, Scenario],
     return out
 
 
-#: what ``frontier`` needs and the port does not have yet
-_NO_FRONTIER = ("frontier() runs the frontier engine (repro.opt.search: "
-                "frontier_search, oracle_spot_check), which the port does not "
-                "have yet (ROADMAP Queue 1 item 3, the optimizer)")
-
-
 def frontier(scenarios: Optional[Sequence[str]] = None,
              space=None, spot_check: int = 0,
              log=None, coarse_frac: float = 0.1, eps: float = 0.15,
              survivor_cap: int = 12,
-             telemetry=None, *, spec: Optional[RunSpec] = None):
-    """Scenario-side entry point into the frontier engine (see
-    ``repro.scenarios.runner.frontier``): the same signature, and a
-    ``NotImplementedError`` until the optimizer is ported."""
-    raise NotImplementedError(_NO_FRONTIER)
+             telemetry=None, *, spec: Optional[RunSpec] = None, device=None):
+    """Scenario-side entry point into the frontier engine: search the joint
+    (policy x fleet) space across the given scenarios (default: every
+    registered event-level scenario) with the coarse+refine schedule,
+    optionally oracle-checking ``spot_check`` sampled winners per scenario.
+
+    Run configuration (scale / billing / devices / cluster) lands through
+    ``spec`` only — the loose ``scale=`` / ``billing=`` shim keywords were
+    removed.  The search-shape knobs (``space``, ``coarse_frac``, ``eps``,
+    ``survivor_cap``, ``spot_check``) and the sinks (``log``,
+    ``telemetry`` — a ``repro_torch.obs.RunTelemetry``) are genuine
+    parameters of THIS function, spelled out explicitly so a typo fails as
+    a TypeError instead of vanishing into ``**kw``.  Every fluid run
+    happens on ``device`` (CUDA by default), resolved before the search.
+
+    Returns ``(FrontierResult, spot_records)``; see
+    ``repro_torch.opt.search``.  (Imported lazily: ``repro_torch.opt``
+    builds on this package.)
+    """
+    from repro_torch.opt.search import (DEFAULT_SPACE, frontier_search,
+                                        oracle_spot_check)
+    spec = spec if spec is not None else RunSpec()
+    if not isinstance(spec, RunSpec):
+        raise TypeError("frontier() spec= must be a RunSpec, got "
+                        f"{type(spec).__name__}")
+    device = resolve_device(device)
+    result = frontier_search(scenarios, space=space or DEFAULT_SPACE,
+                             scale=spec.scale, coarse_frac=coarse_frac,
+                             eps=eps, survivor_cap=survivor_cap,
+                             billing=spec.billing, log=log,
+                             telemetry=telemetry, devices=spec.devices,
+                             cluster=spec.cluster, device=device)
+    checks = oracle_spot_check(result, k=spot_check, device=device) \
+        if spot_check else []
+    return result, checks
 
 
 def parity_report(rows: Sequence[dict]) -> dict:

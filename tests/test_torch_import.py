@@ -51,7 +51,9 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                 "scenarios.transforms", "scenarios.cluster", "cells", "cells.fluid",
                 "cells.traffic", "cells.topology", "cells.triggers", "cells.oracle",
                 "cells.family", "launch.flags", "launch.scenarios", "launch.trace",
-                "launch.clitext"):
+                "launch.clitext", "opt", "opt.frontier", "opt.space", "opt.search",
+                "opt.learned", "opt.evo", "opt.evo.budget", "opt.evo.nsga", "opt.evo.genome",
+                "opt.evo.engine", "fleet.sweep", "launch.frontier"):
         assert f"repro_torch.{mod}" in mods, mod
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

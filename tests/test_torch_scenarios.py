@@ -248,8 +248,8 @@ def test_runner_refusals():
     spec = TRunSpec(scale=0.1, engines=("simjax",), devices=1)
     with pytest.raises(ValueError, match="do not shard over devices"):
         TS.run_scenario("region_failover", spec=spec, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        TS.frontier(["diurnal"])
+    with pytest.raises(TypeError, match="RunSpec"):
+        TS.frontier(["diurnal"], spec={"scale": 0.1}, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         TS.run_scenario("diurnal", spec=TRunSpec(scale=0.1, engines=("simjax",), devices=2),
                         device="cpu")

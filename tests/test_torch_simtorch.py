@@ -122,7 +122,8 @@ def _chunk_inputs(trace, policy, dt=1.0):
 def test_gradient_of_a_chunk_matches_jax_grad(trace, family, knob, value, others, telem,
                                               picks):
     """d(sums)/d(knob) through one chunk (warm-up included), autograd against
-    jax.jacrev: the path the learned-policy training (Queue 1 item 10) takes."""
+    jax.jacrev: the path the learned-policy training (``repro_torch.opt.learned``)
+    takes."""
     policy = J.JaxPolicy(family=family, window_s=60)
     x = _chunk_inputs(trace, policy)
     n_ticks = x["arr"].shape[0]
