@@ -116,8 +116,9 @@ card's name and power limit as nvidia-smi gives them on a line of its own):
                   (fig9_production's 2000-function, 4800 s trace: its
                   3,502,489 invocations, the host seconds of rate_matrix and
                   gap_statistics); fluid.fig9 (benchmarks/fig9_large_scale.py's
-                  six policies through simulate_chunked, 50 nodes, chunks of
-                  512: wall, ticks/s, the metrics, peak memory; one chunk of
+                  policies through simulate_chunked, 50 nodes, chunks of 512,
+                  but the two async w600 ones fluid.sweep holds: wall,
+                  ticks/s, the metrics, peak memory; one chunk of
                   sync ka 600 under the profiler: launches, device busy and
                   wall per tick, the idle share); fluid.sweep (one batch of 64
                   async points at window 600: 0.7 and 1.0 held to the
@@ -167,6 +168,19 @@ card's name and power limit as nvidia-smi gives them on a line of its own):
                   -m repro_torch.launch.frontier as a subprocess: the smoke's
                   exit code and artifacts held to the JAX CLI's, --algo nope
                   exits 2)
+  dist.*          the sharded fluid run (RunSpec(devices=N); no kernel of this
+                  repo), held to the JAX package's rows at devices=2 in
+                  tests/data/torch_dist_jax_rows.json (written with jax under
+                  forced host devices by tests/test_torch_dist_reference.py):
+                  dist.planet (fluid.planet's trace again: RunSpec(devices=1)
+                  equal to fluid.planet's row bit for bit; two function shards
+                  on cuda:0 held to that row at 1e-5 and to JAX's at 1e-4);
+                  dist.points (evaluate_points on fleet_cost_stress at 0.25 x,
+                  4 points over two point shards on cuda:0); dist.cli (python
+                  -m repro_torch.launch.scenarios --devices 2, run beside the
+                  scenario phases: exits 2 on one card, runs and is held
+                  where two are visible).  Two shards
+                  on one card test the shard logic, not a speed-up
 Then one JSON line of per-kernel numbers, and last the result line
 ``{"ok": true, "device": {...}}``.  Any failure ends the run non-zero.
 """
@@ -175,8 +189,10 @@ from __future__ import annotations
 
 import bisect
 import contextlib
+import csv
 import dataclasses
 import gc
+import io
 import json
 import os
 import shutil
@@ -1979,7 +1995,8 @@ HISTORY_KEYS = ("normalized_memory", "creation_rate", "cpu_overhead", "instances
                 "nodes_mean", "node_seconds", "completed")
 HISTORY_RTOL, HISTORY_SLOWDOWN_RTOL = 1e-3, 0.05
 # fluid.cpu: the card against the port on the CPU, every family with and without a fleet
-FLUID_CPU_TRACE = dict(num_functions=200, duration_s=1200, target_total_rps=20, seed=3)
+# (600 s: 1200 s until a full run read 1,127 s of the 1,200 s limit, PERF.md §6)
+FLUID_CPU_TRACE = dict(num_functions=200, duration_s=600, target_total_rps=20, seed=3)
 FLUID_CPU_FLEET = dict(node_memory_mb=8192.0, min_nodes=1, max_nodes=32)
 
 
@@ -2147,12 +2164,16 @@ def profile_ticks(chunk, n: int) -> dict:
 
 
 def fluid_fig9_phase(fl, trace) -> dict:
-    """benchmarks/fig9_large_scale.py's six policies through simulate_chunked
-    (50 nodes, chunks of 512), every metric held to the JAX package's row; one
-    chunk of sync ka 600 profiled."""
+    """benchmarks/fig9_large_scale.py's policies through simulate_chunked (50
+    nodes, chunks of 512), every metric held to the JAX package's row; one chunk
+    of sync ka 600 profiled.  The two async w600 policies are held in
+    fluid.sweep's batch to the same JAX rows, and are not run alone here (cut
+    when a full run read 1,127 s of the 1,200 s limit, PERF.md §6)."""
     rows, spent = {}, {}
     f, ticks = trace.num_functions, int(np.ceil(trace.duration_s))
-    for run in (r for r in fl.ref["runs"] if r["name"].startswith("fig9.")):
+    in_sweep = set(fl.ref["sweep"]["held"].values())
+    for run in (r for r in fl.ref["runs"]
+                if r["name"].startswith("fig9.") and r["name"] not in in_sweep):
         with part(spent, run["name"]):
             row, wall, peak = fluid_call(fl, trace, run)
         err = hold_ref_row(fl, row, run["row"], run["name"])
@@ -2261,10 +2282,11 @@ def fluid_history_phase(fl, trace, fig9_rows: dict) -> None:
           phase_parts_s=parts(spent))
 
 
-def fluid_planet_phase(fl) -> None:
+def fluid_planet_phase(fl) -> tuple:
     """fig9_planet's base, unclustered: 100,000 functions, 1200 ticks of 2 s, 2500
     nodes, chunks of 256, sync ka 600; its 25.6M-cell histogram goes through the
-    float32 slowdown solver on the card.  Held to the JAX package's row."""
+    float32 slowdown solver on the card.  Held to the JAX package's row.
+    -> (the trace, the row), which dist.planet reuses."""
     spent = {}
     with part(spent, "synthesize_rates"):
         trace = fluid_trace(fl, "fig9_planet")
@@ -2278,6 +2300,7 @@ def fluid_planet_phase(fl) -> None:
     fluid_line("fluid.planet", run["name"], row, wall, peak, trace.counts.shape[0],
                trace.num_functions, histogram_cells=cells, max_rel_err_vs_jax=err,
                phase_parts_s=parts(spent))
+    return trace, row
 
 
 def fluid_cpu_phase(fl) -> None:
@@ -2551,6 +2574,175 @@ def scenario_cli_phase(sm) -> None:
             if proc.poll() is None:
                 proc.kill()
                 proc.communicate()
+
+
+# the sharded fluid run (RunSpec(devices=N): repro_torch.core.simtorch's function-
+# and point-sharded dispatch, repro_torch.distributed.sharding's meshes).  One process
+# drives every shard; the machine has one card, so two shards share cuda:0 through a
+# mesh that places them there: that tests the shard logic, not a speed-up.  Held to
+# the JAX package's rows at devices=2, written with jax under forced host devices by
+# tests/test_torch_dist_reference.py.  No kernel of this repo is on its path.
+DIST_REF = ROOT / "tests" / "data" / "torch_dist_jax_rows.json"
+DIST_SHARDS = 2
+DIST_CLI_TIMEOUT = 300
+
+
+def dist_modules(fl):
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.fleet.billing import apply_throttle, resolve_profile
+    from repro_torch.opt.search import default_fleet, evaluate_points
+    from repro_torch.scenarios import get_scenario
+    ref = json.loads(DIST_REF.read_text())
+    return types.SimpleNamespace(
+        fl=fl, st=fl.st, Mesh=Mesh, apply_throttle=apply_throttle,
+        resolve_profile=resolve_profile, default_fleet=default_fleet,
+        evaluate_points=evaluate_points, get_scenario=get_scenario, ref=ref,
+        tol=ref["tolerances"])
+
+
+def shards_on_one_card(dm, axis: str):
+    """A 1-D mesh of DIST_SHARDS positions, every one of them cuda:0."""
+    return dm.Mesh((axis,), (DIST_SHARDS,), (torch.device("cuda", 0),) * DIST_SHARDS)
+
+
+def dist_planet_phase(dm, trace, planet_row: dict) -> None:
+    """fluid.planet's run again: RunSpec(devices=1) through simulate_chunked, equal
+    to fluid.planet's row bit for bit; then two function shards (50,000 functions
+    each) on cuda:0 through the sharded dispatch, held to that row at the
+    unsharded tolerance and to the JAX package's devices=2 row."""
+    fl, st = dm.fl, dm.st
+    ref = dm.ref["planet"]
+    run = fl.runs["planet.sync_ka600"]
+    if {k: ref[k] for k in ("policy", "dt", "num_nodes", "chunk_ticks")} != \
+            {k: run[k] for k in ("policy", "dt", "num_nodes", "chunk_ticks")}:
+        raise AssertionError("dist.planet: the reference's run is not fluid.planet's")
+    spent = {}
+    with part(spent, "devices_1"):
+        row1, wall1, peak1 = fluid_call(fl, trace, run, spec=fl.RunSpec(devices=1))
+    if row1 != planet_row:
+        diff = {k: (row1[k], planet_row[k]) for k in row1 if row1[k] != planet_row.get(k)}
+        raise AssertionError(f"dist.planet: RunSpec(devices=1) differs from fluid.planet: "
+                             f"{diff}")
+    pol = st.JaxPolicy(**run["policy"])
+    mesh = shards_on_one_card(dm, "functions")
+    with part(spent, "two_shards"):
+        base = start_peak()
+        t0 = time.monotonic()
+        row2 = st._chunked_summaries(
+            trace, pol, st.stack_params([pol.params()]),
+            np.zeros((1, len(st._PFLEET)), np.float32), sim=fl.SimConfig(), dt=run["dt"],
+            num_nodes=run["num_nodes"], provision_s=0.0, has_fleet=False,
+            chunk_ticks=run["chunk_ticks"], warmup_frac=0.5, nbins=256, mesh=mesh)[0]
+        wall2, peak2 = time.monotonic() - t0, peak_above(base)
+    err_one = hold_fluid_row(row2, planet_row, dm.tol["unsharded_rtol"],
+                             dm.tol["unsharded_rtol"], "dist.planet vs fluid.planet")
+    err_jax = hold_fluid_row(row2, ref["row"], dm.tol["row_rtol"], dm.tol["slowdown_rtol"],
+                             "dist.planet vs JAX devices=2")
+    ticks, fns = trace.counts.shape[0], trace.num_functions
+    phase("dist.planet", run=run["name"], functions=fns, ticks=ticks,
+          devices_1_wall_s=f"{wall1:.3f}", devices_1_peak_mem_bytes=peak1,
+          devices_1_equals_fluid_planet=True,
+          shards=f"{DIST_SHARDS} on one card ({', '.join(str(d) for d in mesh.devices)})",
+          functions_per_shard=-(-fns // DIST_SHARDS), two_shards_wall_s=f"{wall2:.3f}",
+          two_shards_peak_mem_bytes=peak2,
+          two_shards_peak_per_shard_bytes=peak2 // DIST_SHARDS,
+          slowdown_geomean_p99=f"{row2['slowdown_geomean_p99']:.6g}",
+          normalized_memory=f"{row2['normalized_memory']:.6g}",
+          nodes_mean=row2["nodes_mean"], max_rel_err_vs_unsharded=err_one,
+          max_rel_err_vs_jax_devices_2=err_jax, phase_parts_s=parts(spent))
+
+
+def dist_points_phase(dm) -> None:
+    """evaluate_points on fleet_cost_stress at 0.25 x (75 functions, 900 ticks, a
+    fleet), 4 points over two point shards on cuda:0, held to the JAX package's
+    devices=2 rows and to the unsharded batch on the card."""
+    ref = dm.ref["points"]
+    sc = dm.get_scenario(ref["name"])
+    sim = dm.fl.SimConfig(tick_s=sc.policy.tick_s)
+    prof = dm.resolve_profile(None, sc.billing)
+    trace = dm.apply_throttle(sc.build_trace(ref["spec"]["scale"]), prof)
+    kw = dict(sim=sim, dt=sim.tick_s, billing=prof, chunk_ticks=sc.chunk_ticks)
+    args = (trace, sc.policy.to_jax(), dm.default_fleet(sc), ref["points"])
+    spent = {}
+    with part(spent, "unsharded"):
+        base_rows = dm.evaluate_points(*args, device=DEVICE, **kw)
+    mesh = shards_on_one_card(dm, "points")
+    with part(spent, "two_shards"):
+        base = start_peak()
+        t0 = time.monotonic()
+        rows = dm.evaluate_points(*args, device=DEVICE, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        wall, peak = time.monotonic() - t0, peak_above(base)
+    errs_jax, errs_one = [], []
+    for i, (got, one, want) in enumerate(zip(rows, base_rows, ref["rows"])):
+        nums = [k for k, v in got.items()
+                if isinstance(v, (int, float, np.number)) and not isinstance(v, bool)]
+        meta = [k for k in got if k not in nums]
+        if {k: got[k] for k in meta} != {k: want[k] for k in meta}:
+            raise AssertionError(f"dist.points {i}: {[(k, got[k], want[k]) for k in meta]}")
+        errs_jax.append(hold_fluid_row({k: float(got[k]) for k in nums},
+                                       {k: want[k] for k in nums},
+                                       dm.tol["row_rtol"], dm.tol["slowdown_rtol"],
+                                       f"dist.points {i} vs JAX devices=2"))
+        errs_one.append(hold_fluid_row({k: float(got[k]) for k in nums},
+                                       {k: float(one[k]) for k in nums},
+                                       dm.tol["unsharded_rtol"], dm.tol["unsharded_rtol"],
+                                       f"dist.points {i} vs unsharded"))
+    phase("dist.points", scenario=ref["name"], scale=ref["spec"]["scale"],
+          functions=trace.num_functions, points=len(rows),
+          shards=f"{DIST_SHARDS} on one card ({', '.join(str(d) for d in mesh.devices)})",
+          points_per_shard=len(rows) // DIST_SHARDS, two_shards_wall_s=f"{wall:.3f}",
+          two_shards_peak_mem_bytes=peak, two_shards_peak_per_shard_bytes=peak // DIST_SHARDS,
+          cost_per_million=[f"{r['cost_per_million']:.6g}" for r in rows],
+          max_rel_err_vs_jax_devices_2=errs_jax, max_rel_err_vs_unsharded=errs_one,
+          phase_parts_s=parts(spent))
+
+
+DIST_CLI_ARGV = ["--scenario", "fig9_planet", "--devices", str(DIST_SHARDS)]
+
+
+def dist_cli_start() -> tuple:
+    """Start python -m repro_torch.launch.scenarios --scenario fig9_planet --devices 2
+    as a user runs it -> (start, process), for dist_cli_phase to wait on: it runs
+    beside the scenario phases, its output into pipes."""
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src") + (os.pathsep + path if path else ""))
+    return time.monotonic(), subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.scenarios", *DIST_CLI_ARGV], env=env,
+        cwd=ROOT, text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def dist_cli_phase(sm, started: tuple) -> None:
+    """Wait for the CLI run that dist_cli_start began: with one card visible it
+    exits 2 with the visible-devices message; with two it runs (the function axis
+    over cuda:0 and cuda:1) and its row is held to the JAX package's fig9_planet
+    row at scale 1.0.  It is collected after the scenario phases: the seconds
+    printed run from its start to then, not to its end."""
+    t0, proc = started
+    try:
+        stdout, stderr = proc.communicate(timeout=DIST_CLI_TIMEOUT)
+    finally:
+        stop_processes([started])
+    wall = time.monotonic() - t0
+    n = torch.cuda.device_count()
+    extra = {}
+    if n < DIST_SHARDS:
+        want = f"--devices {DIST_SHARDS}: only {n} CUDA device(s) visible\n"
+        if proc.returncode != 2 or stdout or stderr != want:
+            raise AssertionError(f"dist.cli: exit {proc.returncode}, stdout {stdout!r}, "
+                                 f"stderr {stderr!r}; want exit 2 and {want!r}")
+    else:
+        if proc.returncode != 0:
+            raise AssertionError(f"dist.cli: exit {proc.returncode}; {stderr[-2000:]}")
+        want = next(r for r in sm.ref["full"] if r["name"] == "fig9_planet")["row"]
+        got = next(csv.DictReader(io.StringIO(stdout)))
+        nums = [k for k, v in want.items() if isinstance(v, float)]
+        extra["max_rel_err_vs_jax"] = hold_fluid_row(
+            {k: float(got[k]) for k in nums}, {k: want[k] for k in nums},
+            sm.tol["row_rtol"], sm.tol["slowdown_rtol"], "dist.cli")
+    phase("dist.cli", argv=" ".join(DIST_CLI_ARGV), visible_cuda_devices=n,
+          rc=proc.returncode, collected_after_s=f"{wall:.2f}",
+          stderr=repr(stderr.strip()[-160:]), **extra)
 
 
 # the optimizer (repro_torch.opt, repro_torch.fleet.sweep, scenarios.runner.frontier,
@@ -3019,7 +3211,7 @@ def main() -> int:
     # 4 x ~8.1 GB resident, well under 80 GB
     paths["serve.gemma3-4b"] = timed(
         "serve.gemma3-4b", serve_phase, gemma, *serve_args, n_requests=8,
-        prompt_lens=(64, 256), max_new_tokens=16, max_replicas=4)
+        prompt_lens=(32, 128), max_new_tokens=16, max_replicas=4)
     prefill_args = (kernels, plain, registry, stack)
     paths.update(timed("prefill.gemma3-4b", prefill_phase, gemma, 3_879_925_248,
                        *prefill_args, batch=PREFILL_B, seq=PREFILL_S_GEMMA,
@@ -3112,16 +3304,29 @@ def main() -> int:
     timed("fluid.history", fluid_history_phase, fl, fig9, fig9_rows)
     del fig9
     free_cuda()
-    timed("fluid.planet", fluid_planet_phase, fl)
+    planet, planet_row = timed("fluid.planet", fluid_planet_phase, fl)
+    # the sharded run on fluid.planet's trace (RunSpec(devices=N)): no kernel of this repo
+    dm = dist_modules(fl)
+    timed("dist.planet", dist_planet_phase, dm, planet, planet_row)
+    del planet
+    free_cuda()
+    timed("dist.points", dist_points_phase, dm)
     timed("fluid.cpu", fluid_cpu_phase, fl)
 
     # the scenario and cells layers: every registered scenario, no kernel of this repo
     free_cuda()
     sm = scenario_modules()
-    timed("scenario.full", scenario_full_phase, sm, fig9_rows)
-    parity = timed("scenario.parity", scenario_parity_phase, sm)
-    timed("scenario.cells", scenario_cells_phase, sm, parity)
-    timed("scenario.cli", scenario_cli_phase, sm)
+    # the sharded run's CLI goes on beside the scenario phases
+    dist_cli = dist_cli_start()
+    try:
+        timed("scenario.full", scenario_full_phase, sm, fig9_rows)
+        parity = timed("scenario.parity", scenario_parity_phase, sm)
+        timed("scenario.cells", scenario_cells_phase, sm, parity)
+        timed("scenario.cli", scenario_cli_phase, sm)
+    except BaseException:
+        stop_processes([dist_cli])
+        raise
+    timed("dist.cli", dist_cli_phase, sm, dist_cli)
 
     # the optimizer: grid and evo search, the learned policy, the frontier CLI; no kernel
     # of this repo

@@ -38,6 +38,7 @@ it; the CPU runs only when the caller passes ``device="cpu"``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Optional
@@ -48,8 +49,9 @@ import torch
 from repro_torch.core.eventsim import SimConfig
 from repro_torch.core.policy_api import (HYBRID_MIN_KA_S, JaxDecision,  # noqa: F401
                                          PolicyObs, _max, _min, get_family)
-from repro_torch.core.trace import Trace, gap_statistics, rate_matrix
+from repro_torch.core.trace import KA_GRID, Trace, gap_statistics, rate_matrix
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import device_mesh
 from repro_torch.obs.telemetry import TELEM_ATTR, TELEM_SERIES, assemble_telemetry
 
 F32 = torch.float32
@@ -934,11 +936,80 @@ def _acc_summary(hist, arrtot, sums, n, edges, dur_median, dur_sigma, warm,
     }
 
 
-#: what ``RunSpec(devices=d)`` with d > 1 needs and the port does not have yet
-_MULTI_DEVICE = ("RunSpec(devices={d}) shards the chunked run over {d} devices "
-                 "(repro.core.simjax._chunk_batch_fnshard_impl and the point-axis "
-                 "mesh); the port runs on one device until that is ported "
-                 "(ROADMAP Queue 1 item 5)")
+# ---------------------------------------------------------------------------
+# the chunked run, on one device or sharded over several (planet scale)
+# ---------------------------------------------------------------------------
+#
+# As in the JAX package (``repro.core.simjax``), the function axis is
+# embarrassingly parallel without a fleet: per-function state never
+# couples across functions, and every cross-function sum of the step feeds
+# only the outputs.  ``devices > 0`` without a fleet therefore splits the
+# functions over a 1-D "functions" mesh (F padded to a multiple of its size
+# with inert functions), each shard runs the whole chunk on its slice, and
+# the shards' float64 accumulators are added once, after the chunk loop
+# (JAX psums float32 chunk sums every chunk: the same sums reassociated).
+# The replicated floors (the master CPU floor, the static node count) are
+# divided by the shard count so that the sum of the shards' sums rebuilds
+# them: exact for powers of two, and division by 1 is the identity, so one
+# shard is bit for bit the unsharded run.  A fleet couples functions inside
+# every tick, so fleet batches shard their POINT axis instead, over the
+# largest divisor of the point count within ``devices``.
+#
+# One process drives every shard, as ``shard_map`` does from one
+# controller: each shard's state and inputs live on its own device, and the
+# host loop runs each shard's chunk in turn.
+
+
+def _largest_divisor(n: int, cap: int) -> int:
+    """Largest d <= cap with n % d == 0 (the JAX package shards no uneven
+    point batch)."""
+    for d in range(min(cap, n), 0, -1):
+        if n % d == 0:
+            return d
+    return 1
+
+
+@dataclasses.dataclass
+class _HostInputs:
+    """A chunked run's inputs on the host: the (T, F) count matrix, the
+    per-function vectors and gap tables (``fn``, numpy, functions on axis
+    0), ``_prep_static``'s depths and CPU constants, and the trace's
+    function count (before any padding)."""
+    arr: np.ndarray
+    fn: dict
+    cold_ticks: int
+    wbuf: int
+    cpu_consts: tuple
+    functions: int
+
+
+def _host_inputs(trace, policy: JaxPolicy, sim: SimConfig, dt: float, billing,
+                 multiple: int = 1) -> _HostInputs:
+    """The host preparation of a chunked run (the rate matrix, the gap
+    statistics, the static per-function vectors), padded with inert
+    functions to a multiple of ``multiple``, as the JAX package pads a
+    function-sharded run: no arrivals (so no instances, creations, memory
+    or histogram mass), dur 1, mem 0, billed weight 0, the never-observed-
+    gap convention (gap the trace's duration, alive = ka, tail = 1) and
+    cluster weight 0."""
+    arr = np.asarray(rate_matrix(trace, dt))
+    dur, mem, cold_ticks, wbuf, cpu_consts = _prep_static(trace, policy, sim, dt)
+    gq, alive_tab, tail_tab = gap_statistics(trace)
+    fn = dict(lam0=arr.mean(axis=0) / dt, gaps=gq, alive=alive_tab, tail=tail_tab,
+              dur=dur, mem=mem, billed_w=_billed_weights(trace, billing))
+    weights = getattr(trace, "weights", None)
+    if weights is not None:
+        fn["weights"] = np.asarray(weights)
+    functions = arr.shape[1]
+    pad = (-functions) % multiple
+    if pad:
+        inert = dict(lam0=0.0, gaps=trace.duration_s, alive=KA_GRID, tail=1.0, dur=1.0,
+                     mem=0.0, billed_w=0.0, weights=0.0)
+        fn = {k: np.concatenate([v, np.broadcast_to(np.asarray(inert[k], v.dtype),
+                                                    (pad,) + v.shape[1:])])
+              for k, v in fn.items()}
+        arr = np.concatenate([arr, np.zeros((arr.shape[0], pad), arr.dtype)], axis=1)
+    return _HostInputs(arr, fn, cold_ticks, wbuf, cpu_consts, functions)
 
 
 @dataclasses.dataclass
@@ -953,37 +1024,74 @@ class _ChunkedRun:
     chunk_ticks: int
 
 
+def _upload_run(h: _HostInputs, pols: dict, fleets: np.ndarray, *, family: str,
+                dt: float, num_nodes: float, provision_s: float, has_fleet: bool,
+                chunk_ticks: int, warmup_frac: float, nbins: int, telemetry: int,
+                device: torch.device, fns: slice = slice(None),
+                shards: int = 1) -> _ChunkedRun:
+    """One shard of a chunked run on ``device``: the functions ``fns`` of
+    ``h`` for the points of ``pols`` / ``fleets``; ``shards`` shards share
+    the master CPU floor and the static node count (see above)."""
+    dev = device                       # the shard's device
+    arr = h.arr[:, fns]
+    fn = {k: _upload(v[fns], dev) for k, v in h.fn.items()}
+    n_ticks, f = arr.shape
+    prov_ticks = max(1, int(round(provision_s / dt)))
+    fleets_t = _upload(fleets, dev)
+    init_nodes = fleets_t[:, :1] if has_fleet else float(num_nodes)
+    state = _init_state(f, h.cold_ticks, h.wbuf, prov_ticks, init_nodes,
+                        points=fleets.shape[0], device=dev)
+    chunk_kw = dict(
+        lam0=fn["lam0"], gaps=fn["gaps"], gap_tab=(fn["alive"], fn["tail"]),
+        dur=fn["dur"], mem=fn["mem"], billed_w=fn["billed_w"],
+        pol=_params_to(pols, dev), fleet=fleets_t,
+        cpu_consts=h.cpu_consts[:-1] + (h.cpu_consts[-1] / shards,),
+        static_nodes=float(num_nodes) / shards,
+        edges=torch.as_tensor(_delay_edges(nbins), device=dev),
+        warm_tick=int(n_ticks * warmup_frac), total_ticks=n_ticks,
+        family=family, dt=dt, cold_ticks=h.cold_ticks, wbuf=h.wbuf,
+        prov_ticks=prov_ticks, has_fleet=has_fleet, telem_slots=int(telemetry),
+        weights=fn.get("weights"))
+    return _ChunkedRun(arr=_arrivals_on(arr, dev), state=state, chunk_kw=chunk_kw,
+                       n_ticks=n_ticks, chunk_ticks=max(1, min(chunk_ticks, n_ticks)))
+
+
 def _chunked_setup(trace, policy: JaxPolicy, pols: dict, fleets: np.ndarray, *,
                    sim: SimConfig, dt: float, num_nodes: float, provision_s: float,
                    has_fleet: bool, chunk_ticks: int, warmup_frac: float, nbins: int,
                    telemetry: int = 0, billing=None, device=None) -> _ChunkedRun:
-    """The host preparation of ``_chunked_summaries`` (the rate matrix, the
-    gap statistics, the static per-function vectors) and its one upload."""
+    """The host preparation of an unsharded ``_chunked_summaries`` run and
+    its one upload."""
     dev = resolve_device(device)
-    arr_np = np.asarray(rate_matrix(trace, dt))
-    n_ticks, f = arr_np.shape
-    dur, mem, cold_ticks, wbuf, cpu_consts = _prep_static(trace, policy, sim, dt)
-    billed_w = _billed_weights(trace, billing)
-    weights_np = getattr(trace, "weights", None)
-    prov_ticks = max(1, int(round(provision_s / dt)))
-    gq, alive_tab, tail_tab = gap_statistics(trace)
-    fleets_t = _upload(fleets, dev)
-    init_nodes = fleets_t[:, :1] if has_fleet else float(num_nodes)
-    state = _init_state(f, cold_ticks, wbuf, prov_ticks, init_nodes,
-                        points=fleets.shape[0], device=dev)
-    chunk_kw = dict(
-        lam0=_upload(arr_np.mean(axis=0) / dt, dev), gaps=_upload(gq, dev),
-        gap_tab=(_upload(alive_tab, dev), _upload(tail_tab, dev)),
-        dur=_upload(dur, dev), mem=_upload(mem, dev), billed_w=_upload(billed_w, dev),
-        pol=_params_to(pols, dev), fleet=fleets_t, cpu_consts=cpu_consts,
-        static_nodes=float(num_nodes),
-        edges=torch.as_tensor(_delay_edges(nbins), device=dev),
-        warm_tick=int(n_ticks * warmup_frac), total_ticks=n_ticks,
-        family=policy.family, dt=dt, cold_ticks=cold_ticks, wbuf=wbuf,
-        prov_ticks=prov_ticks, has_fleet=has_fleet, telem_slots=int(telemetry),
-        weights=None if weights_np is None else _upload(weights_np, dev))
-    return _ChunkedRun(arr=_arrivals_on(arr_np, dev), state=state, chunk_kw=chunk_kw,
-                       n_ticks=n_ticks, chunk_ticks=max(1, min(chunk_ticks, n_ticks)))
+    return _upload_run(_host_inputs(trace, policy, sim, dt, billing), pols, fleets,
+                       family=policy.family, dt=dt, num_nodes=num_nodes,
+                       provision_s=provision_s, has_fleet=has_fleet,
+                       chunk_ticks=chunk_ticks, warmup_frac=warmup_frac, nbins=nbins,
+                       telemetry=telemetry, device=dev)
+
+
+def _take_points(pols: dict, points: slice) -> dict:
+    """The points ``points`` of a stacked params tree."""
+    if isinstance(pols, dict):
+        return {k: _take_points(v, points) for k, v in pols.items()}
+    return np.asarray(pols)[points]
+
+
+def _shard_plan(n_points: int, has_fleet: bool, devices: int, device, mesh):
+    """-> (the devices of the shards, whether they split the function axis).
+    One device and False is the unsharded run, on ``device``."""
+    if mesh is None and devices > 0:
+        n = _largest_divisor(n_points, devices) if has_fleet else devices
+        if not has_fleet or n > 1:
+            mesh = device_mesh(n, "points" if has_fleet else "functions", device)
+    if mesh is None:
+        return [resolve_device(device)], False
+    if len(mesh.axis_names) != 1 or mesh.devices is None:
+        raise ValueError(f"a chunked run shards over a 1-D mesh of devices, got {mesh}")
+    if not has_fleet:
+        return list(mesh.devices), True
+    d = _largest_divisor(n_points, mesh.size)
+    return (list(mesh.devices[:d]), False) if d > 1 else ([resolve_device(device)], False)
 
 
 def _chunked_summaries(trace, policy: JaxPolicy, pols: dict,
@@ -992,48 +1100,86 @@ def _chunked_summaries(trace, policy: JaxPolicy, pols: dict,
                        chunk_ticks: int, warmup_frac: float,
                        nbins: int, telemetry: int = 0,
                        billing=None, devices: int = 0,
-                       device=None) -> list[dict]:
+                       device=None, mesh=None) -> list[dict]:
     """Run a batch of policy/fleet parameter points through the chunked
     loop (a leading point axis, a host loop over time chunks) and return one
-    ``summarize``-style dict per point.  ``pols`` is a stacked params pytree
+    ``summarize``-style dict per point.  ``pols`` is a stacked params tree
     (``stack_params``); ``policy`` supplies the family and the structural
-    knobs.  The run happens on ``device`` (CUDA by default); ``devices``
-    above 1 raises ``NotImplementedError`` (no multi-device run yet)."""
-    devices = int(devices)
-    if devices > 1:
-        raise NotImplementedError(_MULTI_DEVICE.format(d=devices))
-    run = _chunked_setup(trace, policy, pols, fleets, sim=sim, dt=dt,
-                         num_nodes=num_nodes, provision_s=provision_s,
-                         has_fleet=has_fleet, chunk_ticks=chunk_ticks,
-                         warmup_frac=warmup_frac, nbins=nbins, telemetry=telemetry,
-                         billing=billing, device=device)
-    n_points, f = fleets.shape[0], run.arr.shape[1]
-    dev = run.arr.device
-    f64 = dict(dtype=torch.float64, device=dev)
-    hist = torch.zeros(n_points, f, nbins, **f64)
-    arrtot = torch.zeros(n_points, f, **f64)
-    sums = torch.zeros(n_points, len(_ACC_NAMES), **f64)
-    n = 0.0
+    knobs.  The run happens on ``device`` (CUDA by default).
+
+    ``devices > 0`` shards the run over ``repro_torch.distributed.sharding.
+    device_mesh(devices, axis, device)``: CUDA devices 0 … devices-1, or
+    ``devices`` shards on the CPU with ``device="cpu"``.  Without a fleet
+    the FUNCTION axis is split (F padded to a multiple of the shard count
+    with inert functions, trimmed from the rows); with one, the POINT axis,
+    over the largest divisor of the point count within ``devices``, and
+    unsharded when that is 1.  ``mesh`` (a 1-D ``Mesh`` with devices)
+    stands in for that mesh: it places the shards where the caller says,
+    two on one card, say.  ``devices=0`` is the unsharded run."""
+    n_points = fleets.shape[0]
+    shard_devs, fn_axis = _shard_plan(n_points, has_fleet, int(devices), device, mesh)
+    n_sh = len(shard_devs)
+    h = _host_inputs(trace, policy, sim, dt, billing, n_sh if fn_axis else 1)
+    f = h.functions
+    common = dict(family=policy.family, dt=dt, num_nodes=num_nodes,
+                  provision_s=provision_s, has_fleet=has_fleet, chunk_ticks=chunk_ticks,
+                  warmup_frac=warmup_frac, nbins=nbins, telemetry=telemetry)
+    if fn_axis:
+        fs = h.arr.shape[1] // n_sh
+        runs = [_upload_run(h, pols, fleets, device=d, fns=slice(s * fs, (s + 1) * fs),
+                            shards=n_sh, **common) for s, d in enumerate(shard_devs)]
+    else:
+        ps = n_points // n_sh
+        runs = [_upload_run(h, _take_points(pols, slice(s * ps, (s + 1) * ps)),
+                            fleets[s * ps:(s + 1) * ps], device=d, **common)
+                for s, d in enumerate(shard_devs)]
+    n_ticks, chunk = runs[0].n_ticks, runs[0].chunk_ticks
     telemetry = int(telemetry)
-    tser = torch.zeros(n_points, max(telemetry, 1), len(TELEM_SERIES), **f64)
+    # per shard, on its device: hist, arrtot, sums, tser, tattr (float64)
+    acc = []
+    for run in runs:
+        p_s, f_s = run.chunk_kw["fleet"].shape[0], run.arr.shape[1]
+        f64 = dict(dtype=torch.float64, device=run.arr.device)
+        acc.append([torch.zeros(p_s, f_s, nbins, **f64), torch.zeros(p_s, f_s, **f64),
+                    torch.zeros(p_s, len(_ACC_NAMES), **f64),
+                    torch.zeros(p_s, max(telemetry, 1), len(TELEM_SERIES), **f64),
+                    torch.zeros(p_s, len(TELEM_ATTR), **f64)])
+    states = [run.state for run in runs]
+    n = 0.0
     tcnt = np.zeros(max(telemetry, 1))
-    tattr = torch.zeros(n_points, len(TELEM_ATTR), **f64)
-    state = run.state
     # The JAX engine pads the last chunk to chunk_ticks with masked ticks;
     # those advance a state nobody reads and add nothing, so the port ends
     # the last chunk at the last tick.
     with torch.no_grad():
-        for t0 in range(0, run.n_ticks, run.chunk_ticks):
-            state, out = _chunk_impl(state, run.arr[t0:t0 + run.chunk_ticks],
-                                     tick0=t0, **run.chunk_kw)
-            hist += out[0]
-            arrtot += out[1]
-            sums += out[2]
+        for t0 in range(0, n_ticks, chunk):
+            for s, run in enumerate(runs):
+                states[s], out = _chunk_impl(states[s], run.arr[t0:t0 + chunk],
+                                             tick0=t0, **run.chunk_kw)
+                a = acc[s]
+                a[0] += out[0]
+                a[1] += out[1]
+                a[2] += out[2]
+                if telemetry:
+                    a[3] += out[4]
+                    a[4] += out[6]
+            # tick counts are the same on every shard: counted once
             n += out[3]
             if telemetry:
-                tser += out[4]
                 tcnt += out[5]
-                tattr += out[6]
+    dev = runs[0].arr.device
+
+    def join(i, dim):
+        parts = [a[i].to(dev) for a in acc]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+
+    def total(i):
+        return functools.reduce(torch.add, [a[i].to(dev) for a in acc])
+
+    if fn_axis:
+        hist, arrtot = join(0, 1)[:, :f], join(1, 1)[:, :f]
+        sums, tser, tattr = total(2), total(3), total(4)
+    else:
+        hist, arrtot, sums, tser, tattr = (join(i, 0) for i in range(5))
     iid = get_family(policy.family).synchronous_tail
     edges = _delay_edges(nbins)
     dur_median = np.asarray(trace.profile.dur_median)
@@ -1057,7 +1203,7 @@ def _chunked_summaries(trace, policy: JaxPolicy, pols: dict,
     if telemetry:
         tser, tattr = tser.cpu().numpy(), tattr.cpu().numpy()
         for i, r in enumerate(rows):
-            r["telemetry"] = assemble_telemetry(tser[i], tcnt, tattr[i], run.n_ticks, dt)
+            r["telemetry"] = assemble_telemetry(tser[i], tcnt, tattr[i], n_ticks, dt)
     return rows
 
 
@@ -1075,8 +1221,10 @@ def simulate_chunked(trace, policy: JaxPolicy, sim: SimConfig = SimConfig(),
     ``spec`` (a ``repro_torch.core.runspec.RunSpec``) carries the run knobs
     this engine consumes: ``telemetry`` slots (0 = off: exactly the
     telemetry-free row), the ``billing`` profile (default ``ideal``), and
-    ``devices`` (above 1 raises ``NotImplementedError``).  The run happens
-    on ``device`` (CUDA by default)."""
+    ``devices`` for the sharded run (the function axis here; see
+    ``_chunked_summaries``).  The run happens on ``device`` (CUDA by
+    default), or with ``devices > 0`` on CUDA devices 0 … devices-1, or
+    that many shards on the CPU with ``device="cpu"``."""
     from repro_torch.core.runspec import RunSpec
     spec = spec if spec is not None else RunSpec()
     if not isinstance(spec, RunSpec):

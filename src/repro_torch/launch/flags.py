@@ -20,7 +20,8 @@ The frontier launcher adds the search-engine flags (``add_search_flags``:
 ``validate_search_flags`` under the same exit-2 contract.
 
 The port of ``repro.launch.flags``.  Devices are counted with
-``torch.cuda.device_count()``.
+``torch.cuda.device_count()``; with ``--device cpu`` any ``--devices N``
+runs N shards on the host (the JAX package's forced host-device count).
 """
 
 from __future__ import annotations
@@ -53,9 +54,9 @@ def add_run_flags(ap: argparse.ArgumentParser, *,
                          "tier (hazard, reclaim notice, discount); "
                          "see --list for registered tiers")
     ap.add_argument("--devices", type=int, default=0, metavar="N",
-                    help="shard the fluid scan over N local CUDA devices "
-                         "(0 = unsharded; the port runs one device: N > 1 "
-                         "raises until the multi-device run is ported)")
+                    help="shard the fluid scan over N local CUDA devices, "
+                         "or N shards on the host with --device cpu "
+                         "(0 = unsharded)")
     ap.add_argument("--cluster", type=float, default=0.0, metavar="RPS",
                     help="bucket functions below this mean-rps threshold "
                          "into weighted super-functions before simulating "
@@ -112,8 +113,9 @@ def validate_run_flags(args: argparse.Namespace) -> int:
         return 2
     if args.devices > 0:
         import torch
+        on_host = args.device is not None and torch.device(args.device).type == "cpu"
         n = torch.cuda.device_count()
-        if args.devices > n:
+        if args.devices > n and not on_host:
             print(f"--devices {args.devices}: only {n} CUDA device(s) "
                   f"visible", file=sys.stderr)
             return 2

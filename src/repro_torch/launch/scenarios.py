@@ -25,7 +25,8 @@ engines.  At full scale the oracle leg of scenarios flagged
 The shared run-configuration flags (``--scale`` / ``--billing`` /
 ``--tier`` / ``--devices`` / ``--cluster``) are declared in
 ``repro_torch.launch.flags`` and map onto ``repro_torch.core.runspec.RunSpec``:
-``--devices N`` above 1 raises until the multi-device run is ported,
+``--devices 8`` shards the fluid scan's function axis across eight local
+CUDA devices (``--device cpu --devices 8``: eight shards on the host),
 ``--cluster 0.05`` buckets the sub-0.05-rps long tail into weighted
 super-functions (fluid-only: the oracle leg drops).
 """

@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed.sharding import div_axis
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
@@ -40,6 +41,22 @@ def init(cfg: ModelConfig, gen, device) -> dict:
         p["q_norm"] = torch.zeros((d,), dtype=pd, device=device)
         p["k_norm"] = torch.zeros((d,), dtype=pd, device=device)
     return p
+
+
+def specs(cfg: ModelConfig) -> dict:
+    """The logical spec of each parameter (``repro_torch.distributed``)."""
+    qh = div_axis("heads", cfg.num_heads)
+    kh = div_axis("kv_heads", cfg.num_kv_heads)
+    s = {
+        "wq": ("embed", qh, None),
+        "wk": ("embed", kh, None),
+        "wv": ("embed", kh, None),
+        "wo": (qh, None, "embed"),
+    }
+    if cfg.qk_norm:
+        s["q_norm"] = (None,)
+        s["k_norm"] = (None,)
+    return s
 
 
 def _proj(x, w, cd):
@@ -116,6 +133,12 @@ def cache_shape(cfg: ModelConfig, batch: int, seq_len: int,
                 window: Optional[int]) -> tuple[int, ...]:
     t = seq_len if window is None else min(window, seq_len)
     return (batch, t, cfg.num_kv_heads, cfg.head_dim)
+
+
+def cache_specs(cfg: ModelConfig):
+    kh = div_axis("kv_heads", cfg.num_kv_heads)
+    seq = None if kh is not None else "kv_seq"   # split-K only when heads can't shard
+    return {"k": ("batch", seq, kh, None), "v": ("batch", seq, kh, None)}
 
 
 def decode(cfg: ModelConfig, p, cache: dict, x, pos, *, window: Optional[int]):

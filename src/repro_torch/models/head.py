@@ -20,6 +20,13 @@ def init(cfg: ModelConfig, gen, device) -> dict:
     return p
 
 
+def specs(cfg: ModelConfig) -> dict:
+    s = {"embed": ("vocab", "embed"), "final_norm": (None,)}
+    if not cfg.tie_embeddings:
+        s["lm_head"] = ("embed", "vocab")
+    return s
+
+
 def embed(cfg: ModelConfig, p, tokens: torch.Tensor) -> torch.Tensor:
     x = p["embed"][tokens].to(cfg.cdtype)
     # the JAX package multiplies by a weakly typed scalar, i.e. sqrt(d_model)

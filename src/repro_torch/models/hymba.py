@@ -62,6 +62,14 @@ def mamba_init(cfg: ModelConfig, gen, device) -> dict:
     }
 
 
+def mamba_specs(cfg: ModelConfig) -> dict:
+    return {
+        "in_proj": ("embed", "ffn"), "conv_w": (None, "ffn"), "conv_b": ("ffn",),
+        "x_proj": ("ffn", None), "dt_proj": (None, "ffn"), "dt_bias": ("ffn",),
+        "A_log": ("ffn", None), "D": ("ffn",), "out_proj": ("ffn", "embed"),
+    }
+
+
 def _conv1d(xin, w, b, conv_state=None):
     """Causal depthwise conv.  xin: (B, S, di); w: (k, di).  conv_state
     (B, k-1, di), if given, is the left context (decode).  -> (out, the last
@@ -159,6 +167,21 @@ def layer_init(cfg: ModelConfig, gen, device, kind: str) -> dict:
     }
 
 
+def layer_specs(cfg: ModelConfig, kind: str) -> dict:
+    return {
+        "ln1": (None,), "attn": attention.specs(cfg), "mamba": mamba_specs(cfg),
+        "norm_attn": (None,), "norm_ssm": (None,),
+        "ln2": (None,), "mlp": layers.swiglu_specs(),
+    }
+
+
+def layer_cache_specs(cfg: ModelConfig, kind):
+    s = attention.cache_specs(cfg)
+    s["ssm_h"] = ("batch", "ffn", None)
+    s["conv"] = ("batch", None, "ffn")
+    return s
+
+
 def _fuse_and_ffn(cfg: ModelConfig, p, x, a, m):
     """x + the averaged normed branch outputs, then the SwiGLU FFN."""
     fused = 0.5 * (layers.rmsnorm(a, p["norm_attn"], cfg.norm_eps)
@@ -222,6 +245,17 @@ def _embed_with_meta(cfg: ModelConfig, params, tokens):
         meta = params["meta"].to(cfg.cdtype).expand(x.shape[0], -1, -1)
         x = torch.cat([meta, x], dim=1)
     return x
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    s = {"head": head.specs(cfg), "layers": stack.run_specs(cfg, layer_specs)}
+    if cfg.num_meta_tokens:
+        s["meta"] = (None, "embed")
+    return s
+
+
+def cache_specs(cfg: ModelConfig) -> list:
+    return stack.cache_run_specs(cfg, layer_cache_specs)
 
 
 def _hidden(cfg: ModelConfig, params, batch):

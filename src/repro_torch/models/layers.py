@@ -209,6 +209,14 @@ def swiglu_init(gen, d_model: int, d_ff: int, dtype, device) -> dict:
     }
 
 
+def swiglu_specs():
+    return {
+        "wi_gate": ("embed", "ffn"),
+        "wi_up": ("embed", "ffn"),
+        "wo": ("ffn", "embed"),
+    }
+
+
 def swiglu_apply(p, x, cdtype):
     gate = x @ p["wi_gate"].to(cdtype)
     up = x @ p["wi_up"].to(cdtype)

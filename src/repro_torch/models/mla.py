@@ -17,6 +17,7 @@ import math
 
 import torch
 
+from repro_torch.distributed.sharding import div_axis
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, layers
 from repro_torch.models.layers import NEG_INF
@@ -37,6 +38,18 @@ def init(cfg: ModelConfig, gen, device) -> dict:
         "wuk": layers.dense_init(gen, r, (h, dn), pd, device),
         "wuv": layers.dense_init(gen, r, (h, dv), pd, device),
         "wo": layers.dense_init(gen, h * dv, cfg.d_model, pd, device).reshape(h, dv, cfg.d_model),
+    }
+
+
+def specs(cfg: ModelConfig) -> dict:
+    qh = div_axis("heads", cfg.num_heads)
+    return {
+        "wdkv": ("embed", "kv_lora"),
+        "kv_norm": (None,),
+        "wq": ("embed", qh, None),
+        "wuk": ("kv_lora", qh, None),
+        "wuv": ("kv_lora", qh, None),
+        "wo": (qh, None, "embed"),
     }
 
 
@@ -97,6 +110,11 @@ def prefill(cfg: ModelConfig, p, cache: dict, x):
 def cache_shape(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
     _, r, _, dr, _ = _dims(cfg)
     return {"ckv": (batch, seq_len, r), "krope": (batch, seq_len, dr)}
+
+
+def cache_specs(cfg: ModelConfig):
+    # the latent is a single shared "head" — split-K the context over model
+    return {"ckv": ("batch", "kv_seq", None), "krope": ("batch", "kv_seq", None)}
 
 
 def decode(cfg: ModelConfig, p, cache: dict, x, pos):

@@ -51,6 +51,18 @@ def moe_init(cfg: ModelConfig, gen, device) -> dict:
     return p
 
 
+def moe_specs(cfg: ModelConfig) -> dict:
+    s = {
+        "router": ("embed", None),
+        "wi_gate": ("experts", "embed", "expert_ffn"),
+        "wi_up": ("experts", "embed", "expert_ffn"),
+        "wo": ("experts", "expert_ffn", "embed"),
+    }
+    if cfg.num_shared_experts:
+        s["shared"] = layers.swiglu_specs()
+    return s
+
+
 def _route(cfg: ModelConfig, p, xg):
     """xg: (n, G, d) -> (probs (n,G,K), ids (n,G,K) int64, aux scalar)."""
     logits = xg.float() @ p["router"]
@@ -179,6 +191,20 @@ def _ffn(cfg: ModelConfig, p, h, kind):
             torch.zeros((), dtype=torch.float32, device=h.device))
 
 
+def layer_specs(cfg: ModelConfig, kind: str) -> dict:
+    s = {"ln1": (None,), "ln2": (None,)}
+    s["attn"] = mla.specs(cfg) if cfg.use_mla else attention.specs(cfg)
+    if kind == "moe":
+        s["moe"] = moe_specs(cfg)
+    else:
+        s["mlp"] = layers.swiglu_specs()
+    return s
+
+
+def layer_cache_specs(cfg: ModelConfig, kind):
+    return mla.cache_specs(cfg) if cfg.use_mla else attention.cache_specs(cfg)
+
+
 def layer_apply(cfg: ModelConfig, p, x, *, window, kind):
     """-> (x, aux scalar)."""
     h = layers.rmsnorm(x, p["ln1"], cfg.norm_eps)
@@ -223,6 +249,14 @@ def init_params(cfg: ModelConfig, *, device: torch.device, seed: int = 0) -> dic
     return {"head": head.init(cfg, gen, device),
             "layers": [layer_init(cfg, gen, device, kind)
                        for _, kind in stack.layer_sigs(cfg)]}
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    return {"head": head.specs(cfg), "layers": stack.run_specs(cfg, layer_specs)}
+
+
+def cache_specs(cfg: ModelConfig) -> list:
+    return stack.cache_run_specs(cfg, layer_cache_specs)
 
 
 def _hidden(cfg: ModelConfig, params, batch):

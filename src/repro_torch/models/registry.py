@@ -45,6 +45,12 @@ def init_params(cfg: ModelConfig, *, device, seed: int = 0):
     return family_module(cfg).init_params(cfg, device=device, seed=seed)
 
 
+def param_specs(cfg: ModelConfig):
+    """The logical spec tree of ``init_params``' tree, leaf for leaf
+    (``repro_torch.distributed.sharding``)."""
+    return family_module(cfg).param_specs(cfg)
+
+
 def forward(cfg: ModelConfig, params, batch):
     return family_module(cfg).forward(cfg, params, batch)
 
@@ -61,6 +67,11 @@ def prefill(cfg: ModelConfig, params, cache, batch):
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, device):
     return family_module(cfg).init_cache(cfg, batch, seq_len, device=device)
+
+
+def cache_specs(cfg: ModelConfig):
+    """The logical spec tree of ``init_cache``' tree, leaf for leaf."""
+    return family_module(cfg).cache_specs(cfg)
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos):

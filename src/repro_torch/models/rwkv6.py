@@ -161,6 +161,23 @@ def _ln(x, scale, eps):
     return layers.layernorm(x, 1.0 + scale, torch.zeros_like(scale), eps)
 
 
+def layer_specs(cfg: ModelConfig, kind: str) -> dict:
+    # time-mix channels must stay head-aligned -> replicated over "model";
+    # channel-mix FFN and embeddings carry the tensor parallelism.
+    tm = {k: tuple([None] * n) for k, n in [
+        ("mu_x", 1), ("mu", 2), ("w1", 2), ("w2", 3), ("w0", 1), ("wa", 2),
+        ("wb", 2), ("u", 2), ("wr", 2), ("wk", 2), ("wv", 2), ("wg", 2),
+        ("wo", 2), ("gn_scale", 1), ("gn_bias", 1)]}
+    cm = {"mu_k": (None,), "mu_r": (None,),
+          "wk": ("embed", "ffn"), "wv": ("ffn", "embed"), "wr": ("embed", None)}
+    return {"ln1": (None,), "tm": tm, "ln2": (None,), "cm": cm}
+
+
+def layer_cache_specs(cfg: ModelConfig, kind):
+    return {"S": ("batch", None, None, None), "tshift": ("batch", None),
+            "cshift": ("batch", None)}
+
+
 def layer_apply(cfg: ModelConfig, p, x, *, window, kind):
     xa = _ln(x, p["ln1"], cfg.norm_eps)
     y, _ = time_mix(cfg, p["tm"], xa, _tshift(xa), None)
@@ -227,6 +244,14 @@ def init_params(cfg: ModelConfig, *, device: torch.device, seed: int = 0) -> dic
     return {"head": head.init(cfg, gen, device),
             "layers": [layer_init(cfg, gen, device, kind)
                        for _, kind in stack.layer_sigs(cfg)]}
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    return {"head": head.specs(cfg), "layers": stack.run_specs(cfg, layer_specs)}
+
+
+def cache_specs(cfg: ModelConfig) -> list:
+    return stack.cache_run_specs(cfg, layer_cache_specs)
 
 
 def _hidden(cfg: ModelConfig, params, batch):

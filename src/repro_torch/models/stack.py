@@ -87,6 +87,20 @@ def compute_runs(cfg: ModelConfig) -> list[Run]:
     return _compress_homogeneous(sigs)
 
 
+def run_specs(cfg: ModelConfig, layer_specs: Callable) -> list:
+    """The spec tree of the port's flat layer list: one ``layer_specs(cfg,
+    kind)`` a layer.  It is the JAX package's run-stacked tree
+    (``repro.models.stack.run_specs``) carried through ``convert``'s
+    layout change: a repeated run's leading "layers" axis is dropped
+    (``LOGICAL_RULES["layers"]`` is ``None``, so nothing is lost)."""
+    return [layer_specs(cfg, kind) for kind in layer_kinds(cfg)]
+
+
+def cache_run_specs(cfg: ModelConfig, layer_cache_specs: Callable) -> list:
+    """The spec tree of the port's per-layer cache list (see ``run_specs``)."""
+    return [layer_cache_specs(cfg, kind) for kind in layer_kinds(cfg)]
+
+
 # the products whose outputs remat="dots" keeps (the JAX package's
 # dots_with_no_batch_dims_saveable); everything else is recomputed
 DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default)

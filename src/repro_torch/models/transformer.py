@@ -28,6 +28,19 @@ def layer_init(cfg: ModelConfig, gen, device, kind: str) -> dict:
     }
 
 
+def layer_specs(cfg: ModelConfig, kind: str) -> dict:
+    return {
+        "ln1": (None,),
+        "attn": attention.specs(cfg),
+        "ln2": (None,),
+        "mlp": layers.swiglu_specs(),
+    }
+
+
+def layer_cache_specs(cfg: ModelConfig, kind):
+    return attention.cache_specs(cfg)
+
+
 def layer_apply(cfg: ModelConfig, p, x, *, window, kind, positions=None):
     h = layers.rmsnorm(x, p["ln1"], cfg.norm_eps)
     x = x + attention.apply(cfg, p["attn"], h, window=window, positions=positions)
@@ -70,6 +83,14 @@ def _embed_inputs(cfg: ModelConfig, params, batch):
     if cfg.family == "vlm":
         x = torch.cat([batch["patch_embeds"].to(cfg.cdtype), x], dim=1)
     return x
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    return {"head": head.specs(cfg), "layers": stack.run_specs(cfg, layer_specs)}
+
+
+def cache_specs(cfg: ModelConfig) -> list:
+    return stack.cache_run_specs(cfg, layer_cache_specs)
 
 
 def _hidden(cfg: ModelConfig, params, batch):

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import div_axis
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, head, layers, stack
 from repro_torch.models.layers import NEG_INF
@@ -39,9 +40,19 @@ def _attn_init(cfg: ModelConfig, gen, device) -> dict:
     }
 
 
+def _attn_specs(cfg: ModelConfig) -> dict:
+    qh = div_axis("heads", cfg.num_heads)
+    return {"wq": ("embed", qh, None), "wk": ("embed", qh, None),
+            "wv": ("embed", qh, None), "wo": (qh, None, "embed")}
+
+
 def _mlp_init(cfg: ModelConfig, gen, device) -> dict:
     return {"w1": layers.dense_init(gen, cfg.d_model, cfg.d_ff, cfg.pdtype, device),
             "w2": layers.dense_init(gen, cfg.d_ff, cfg.d_model, cfg.pdtype, device)}
+
+
+def _mlp_specs() -> dict:
+    return {"w1": ("embed", "ffn"), "w2": ("ffn", "embed")}
 
 
 def _mlp(p, x, cd):
@@ -91,6 +102,24 @@ def dec_layer_init(cfg: ModelConfig, gen, device) -> dict:
     return {"ln1": _norm_init(cfg, device), "self": _attn_init(cfg, gen, device),
             "lnx": _norm_init(cfg, device), "cross": _attn_init(cfg, gen, device),
             "ln2": _norm_init(cfg, device), "mlp": _mlp_init(cfg, gen, device)}
+
+
+def enc_layer_specs(cfg: ModelConfig) -> dict:
+    return {"ln1": (None,), "attn": _attn_specs(cfg), "ln2": (None,), "mlp": _mlp_specs()}
+
+
+def dec_layer_specs(cfg: ModelConfig) -> dict:
+    return {"ln1": (None,), "self": _attn_specs(cfg), "lnx": (None,),
+            "cross": _attn_specs(cfg), "ln2": (None,), "mlp": _mlp_specs()}
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The JAX package's tree with the leading "layers" axis of ``enc`` and
+    ``dec`` dropped: one spec tree a layer (``stack.run_specs``)."""
+    return {"head": head.specs(cfg),
+            "enc": [enc_layer_specs(cfg) for _ in range(cfg.num_encoder_layers)],
+            "dec": [dec_layer_specs(cfg) for _ in range(cfg.num_layers)],
+            "enc_norm": (None,)}
 
 
 def init_params(cfg: ModelConfig, *, device: torch.device, seed: int = 0) -> dict:
@@ -159,6 +188,13 @@ def loss_fn(cfg: ModelConfig, params, batch):
 
 
 # -- caches, prefill, decode ---------------------------------------------------------
+
+
+def cache_specs(cfg: ModelConfig) -> list:
+    qh = div_axis("heads", cfg.num_heads)
+    s = ("batch", None, qh, None)
+    return [dict.fromkeys(("self_k", "self_v", "cross_k", "cross_v"), s)
+            for _ in range(cfg.num_layers)]
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,

@@ -97,14 +97,17 @@ def evaluate_points(trace: Trace, policy: JaxPolicy, fleet: JaxFleet,
                     billing: Union[str, BillingProfile, None] = None,
                     warmup_frac: float = 0.5,
                     chunk_ticks: int = 512, devices: int = 0, *,
-                    cells=None, device=None) -> list[dict]:
+                    cells=None, device=None, mesh=None) -> list[dict]:
     """Run every parameter point through one batched chunked run; return
     one row per point: {params..., metrics..., cost fields...}.  Rows are
     billed through the ``billing`` profile (``repro_torch.fleet.billing``;
     default ``ideal`` — bitwise the pre-billing ``cost_report`` math).
-    ``devices`` above 1 raises ``NotImplementedError``, as the port's
-    engine does (one device until the multi-device run is ported).  The
-    run happens on ``device`` (CUDA by default).
+    ``devices > 0`` shards the batch's POINT axis over the largest divisor
+    of the point count within ``devices`` (unsharded when that is 1): CUDA
+    devices 0 … d-1, or d shards on the CPU with ``device="cpu"``; ``mesh``
+    (a 1-D ``repro_torch.distributed.sharding.Mesh`` with devices) places
+    the shards instead (see ``simtorch._chunked_summaries``).  The run
+    happens on ``device`` (CUDA by default).
 
     This is the generalized core behind ``repro_torch.fleet.sweep.sweep``: every
     policy axis the family declares sweepable is a traced batch axis
@@ -141,7 +144,7 @@ def evaluate_points(trace: Trace, policy: JaxPolicy, fleet: JaxFleet,
 
     prof = resolve_profile(billing)
     if cells is not None:
-        if devices > 0:
+        if devices > 0 or mesh is not None:
             raise ValueError("cells sweeps do not shard over devices: the "
                              "cell axis owns the scan's leading dimension")
         from repro_torch.cells.fluid import cells_chunked_summaries
@@ -156,7 +159,7 @@ def evaluate_points(trace: Trace, policy: JaxPolicy, fleet: JaxFleet,
             trace, policy, pols, fleets, sim=sim, dt=dt, num_nodes=0,
             provision_s=fleet.provision_s, has_fleet=True,
             chunk_ticks=chunk_ticks, warmup_frac=warmup_frac, nbins=256,
-            billing=prof, devices=devices, device=dev)
+            billing=prof, devices=devices, device=dev, mesh=mesh)
 
     if node_type is None:
         # derive a shape from the fleet's node size at the default $/GB-hour

@@ -6,18 +6,21 @@ device, so an update needs no host sync.  The arithmetic is the JAX
 package's, in its order, but ``adamw_update`` and ``clip_by_global_norm``
 work in place, leaf by leaf and ``UPDATE_CHUNK`` elements at a time: the
 temporaries are a few chunks, whatever the model's size (gemma3-4b's
-parameters, grads and moments are 15.5 GB each in float32).  The JAX
-package's ZeRO-1 moment sharding (``_moment_spec``, ``opt_specs``) waits for
-the port's multi-device work.
+parameters, grads and moments are 15.5 GB each in float32).
+
+``opt_specs`` gives the moments' logical spec tree, ZeRO-1 style: on top of
+the parameter's own sharding, each moment is sharded along the data axis
+("opt_state") on its first unsharded dimension that divides evenly.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.distributed.sharding import mesh_axis_size, tree_map_specs
 from repro_torch.training import tree
 
 #: elements updated a pass (64 MB of float32 per temporary)
@@ -41,6 +44,30 @@ def adamw_init(params) -> dict:
     step_device = tree.leaves(params)[0].device
     return {"m": tree.map_(zeros, params), "v": tree.map_(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=step_device)}
+
+
+def _moment_spec(param_spec: Optional[tuple], shape: tuple) -> tuple:
+    """Add 'opt_state' (data-axis) sharding on the first free, divisible dim."""
+    if param_spec is None:
+        param_spec = (None,) * len(shape)
+    n = mesh_axis_size("opt_state")
+    out = list(param_spec)
+    # if the param is already FSDP-sharded over data, moments follow it as-is
+    if n > 1 and "fsdp" not in param_spec and "opt_state" not in param_spec:
+        for i, (ax, dim) in enumerate(zip(param_spec, shape)):
+            if ax is None and dim % n == 0 and dim >= n:
+                out[i] = "opt_state"
+                break
+    return tuple(out)
+
+
+def opt_specs(param_spec_tree, param_shape_tree) -> dict:
+    """Logical spec tree for the optimizer state (same structure as params);
+    ``param_shape_tree`` holds a tensor (``device="meta"`` will do) or a
+    shape at each leaf."""
+    mspec = tree_map_specs(lambda sp, sh: _moment_spec(sp, tuple(getattr(sh, "shape", sh))),
+                           param_spec_tree, param_shape_tree)
+    return {"m": mspec, "v": mspec, "step": None}
 
 
 def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:

@@ -53,7 +53,8 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                 "cells.family", "launch.flags", "launch.scenarios", "launch.trace",
                 "launch.clitext", "opt", "opt.frontier", "opt.space", "opt.search",
                 "opt.learned", "opt.evo", "opt.evo.budget", "opt.evo.nsga", "opt.evo.genome",
-                "opt.evo.engine", "fleet.sweep", "launch.frontier"):
+                "opt.evo.engine", "fleet.sweep", "launch.frontier", "distributed",
+                "distributed.sharding", "launch.mesh"):
         assert f"repro_torch.{mod}" in mods, mod
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -43,6 +43,7 @@ from repro_torch.fleet.sweep import sweep as t_sweep
 from repro_torch.scenarios import get_scenario as t_scenario
 from repro_torch.scenarios.runner import frontier as t_frontier
 
+from torch_dist_common import jax_jobs
 from torch_opt_common import fields, hold_result, hold_row, hold_rows
 
 TC = dict(num_functions=30, duration_s=600, target_total_rps=5, seed=11)
@@ -455,12 +456,17 @@ def test_no_device_means_cuda_or_raise(traces):
 
 
 def test_more_than_one_device_is_not_ported():
-    """RunSpec(devices=N) shards the JAX package's batch; the port runs one
-    device until ROADMAP Queue 1 item 5, and a cells batch refuses devices
-    as JAX's does."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        T.evaluate_scenario("cold_tail", [{}], spec=TRunSpec(scale=0.05, devices=2),
-                            device="cpu")
+    """RunSpec(devices=2) shards the batch's point axis over two shards (on
+    the CPU here) and holds to the JAX package's rows under two forced host
+    devices (torch_dist_common.py); a cells batch refuses devices as JAX's
+    does."""
+    pts = [{"keepalive_s": 60.0}, {"keepalive_s": 600.0}]
+    spec2 = dict(scale=0.05, devices=2)
+    want = jax_jobs([dict(kind="evaluate_scenario", name="cold_tail", points=pts,
+                          spec=spec2)])[0]
+    got = T.evaluate_scenario("cold_tail", pts, spec=TRunSpec(**spec2), device="cpu")
+    hold_rows(got, want)
+    assert got[0]["sims"] == want[0]["sims"] == 2
     with pytest.raises(ValueError, match="do not shard over devices"):
         T.evaluate_points(None, t_scenario("region_failover").policy.to_jax(), TFleet(), [{}],
                           cells=([], None), devices=1, device="cpu")

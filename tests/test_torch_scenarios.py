@@ -30,6 +30,7 @@ from repro_torch.fleet.spot import get_tier as t_tier
 from repro_torch.scenarios.runner import apply_tier as t_apply_tier
 from repro_torch.scenarios.runner import billed_parity as t_billed_parity
 
+from torch_dist_common import jax_jobs
 from torch_fluid_common import _hold_row
 from torch_scenario_common import same_value
 
@@ -250,9 +251,11 @@ def test_runner_refusals():
         TS.run_scenario("region_failover", spec=spec, device="cpu")
     with pytest.raises(TypeError, match="RunSpec"):
         TS.frontier(["diurnal"], spec={"scale": 0.1}, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        TS.run_scenario("diurnal", spec=TRunSpec(scale=0.1, engines=("simjax",), devices=2),
-                        device="cpu")
+    # two shards of the fluid leg (on the CPU here) hold to the JAX
+    # package's rows under two forced host devices (torch_dist_common.py)
+    spec2 = dict(scale=0.1, engines=["simjax"], devices=2)
+    want = jax_jobs([dict(kind="scenario", name="diurnal", spec=spec2)])[0]
+    _hold_rows(TS.run_scenario("diurnal", spec=TRunSpec(**spec2), device="cpu"), want)
     with pytest.raises(ValueError, match="unknown engine"):
         TS.run_scenario("diurnal", spec=TRunSpec(scale=0.1, engines=("bogus",)), device="cpu")
     with pytest.raises(TypeError, match="RunSpec"):

@@ -23,12 +23,17 @@ import repro_torch.core.simtorch as T
 import repro_torch.core.trace as TT
 from repro_torch.core.eventsim import SimConfig as TSim
 from repro_torch.core.runspec import RunSpec as TRunSpec
+from torch_dist_common import jax_jobs
 from torch_fluid_common import FLEETS, POLICIES, SERIES_RTOL, _fleets, _hold_row
+
+
+TRACE20 = {"kind": "events", "config": dict(num_functions=20, duration_s=300.0,
+                                             target_total_rps=4.0)}
 
 
 @pytest.fixture(scope="module")
 def trace():
-    return synthesize(TraceConfig(num_functions=20, duration_s=300, target_total_rps=4))
+    return synthesize(TraceConfig(**TRACE20["config"]))
 
 
 @pytest.mark.parametrize("fleet", [None, "fleet"])
@@ -204,8 +209,13 @@ def test_async_ceil_at_an_exact_integer_follows_the_division_order():
 
 
 def test_more_than_one_device_is_not_ported(trace):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        T.simulate_chunked(trace, T.JaxPolicy(kind=0), spec=TRunSpec(devices=2), device="cpu")
+    """RunSpec(devices=2) runs two shards (here on the CPU) and holds to the
+    JAX package's row at devices=2, computed under two forced host devices
+    (tests/torch_dist_common.py); one device is the unsharded run."""
+    want = jax_jobs([dict(kind="chunked", trace=TRACE20, policy=dict(kind=0), fleet=None,
+                          dt=1.0, num_nodes=8, chunk_ticks=512, spec=dict(devices=2))])[0]
+    got = T.simulate_chunked(trace, T.JaxPolicy(kind=0), spec=TRunSpec(devices=2), device="cpu")
+    _hold_row(got, want)
     # one device is the unsharded run, as in the JAX package
     one = T.simulate_chunked(trace, T.JaxPolicy(kind=0), spec=TRunSpec(devices=1), device="cpu")
     assert one == T.simulate_chunked(trace, T.JaxPolicy(kind=0), device="cpu")

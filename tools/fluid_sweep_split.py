@@ -7,7 +7,7 @@
 Runs ``chip_smoke.py``'s ``fluid.sweep`` batch (one ``_chunked_summaries`` call over
 64 async points at window 600 on fig9_production, from
 ``tests/data/torch_fluid_jax_rows.json``) and splits its wall into the host
-preparation (``_chunked_setup``), the span of the 64 rows' slowdown solves
+preparation (``_host_inputs`` and ``_upload_run``), the span of the 64 rows' slowdown solves
 (``_acc_summary``) and the rest (the tick loop and the read back); the peak memory
 above what was held before; the rows at targets 0.7 and 1.0 held to the JAX
 package's.  Then one profiled chunk of sync ka 600 (``fluid.fig9.profile``):
@@ -49,7 +49,8 @@ def main() -> int:
             spans[name].append((t0, time.monotonic()))
             return out
         return call
-    st._chunked_setup = timed("setup", st._chunked_setup)
+    st._host_inputs = timed("setup", st._host_inputs)
+    st._upload_run = timed("setup", st._upload_run)
     st._acc_summary = timed("solve", st._acc_summary)
     sw = fl.ref["sweep"]
     pols = [st.JaxPolicy(**sw["policy"], target=t) for t in sw["targets"]]
