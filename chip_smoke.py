@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, prefill, training, fluid-simulator, scenario and optimizer paths once on one NVIDIA GPU, and check them.
+"""Drive the PyTorch/CUDA port's serving, prefill, training, fluid-simulator, scenario and optimizer paths and its dry-run tooling once on one NVIDIA GPU, and check them.
 
     python3 chip_smoke.py
 
@@ -51,6 +51,21 @@ card's name and power limit as nvidia-smi gives them on a line of its own):
                   spills; at that shape its time per call and per pass, the
                   plain time and the bound (no single PyTorch call computes
                   it)
+  dryrun.*        the dry-run tooling (repro_torch.launch.{hopper,op_analysis,
+                  cells,dryrun}; no kernel of this repo): dryrun.constants (a
+                  bf16 matmul of 8192^3 and a 2 GiB device-to-device copy
+                  beside launch.hopper's PEAK_FLOPS and HBM_BW; a reading
+                  above 1.05 x its constant fails); dryrun.check (gemma3-4b's
+                  plain-path prefill at B 2, S 4096 and a decode step at 2
+                  slots, max_seq 2048, counted by the op counter on the meta
+                  device and run on the card: the matmul FLOPs equal to
+                  FlopCounterMode's, the arguments' bytes equal, the peak
+                  within 5% of max_memory_allocated, the roofline bound at
+                  most the call's time on CUDA events, the profiled busy time
+                  beside it); dryrun.cli (python -m repro_torch.launch.dryrun
+                  --arch gemma3-4b --shape decode_32k as a subprocess beside
+                  the other two and gemma3-4b's model, serve and prefill
+                  phases: exit 0 and its artifact)
   model           one full-width replica (bf16) per arch: gemma3-4b,
                   deepseek-moe-16b, deepseek-v2-lite-16b (MLA), rwkv6-3b,
                   hymba-1.5b, whisper-tiny: parameter
@@ -122,7 +137,7 @@ card's name and power limit as nvidia-smi gives them on a line of its own):
                   sync ka 600 under the profiler: launches, device busy and
                   wall per tick, the idle share); fluid.sweep (one batch of 64
                   async points at window 600: 0.7 and 1.0 held to the
-                  reference, four points run alone held to their batched rows
+                  reference, one point run alone held to its batched row
                   at 1e-6); fluid.fleet (JaxFleet under sync ka 600, and the
                   spot tier); fluid.telemetry (64 slots: the ledger's exact
                   sums, the rest of the row the fluid.fig9 row bit for bit);
@@ -2187,10 +2202,15 @@ def fluid_fig9_phase(fl, trace) -> dict:
     return rows
 
 
+# of the reference's points run alone and held to their batched rows, the first
+# (each ~10 s on the H100: four took 41.5 s of a run that neared its 1,200 s limit)
+SWEEP_ALONE = 1
+
+
 def fluid_sweep_phase(fl, trace, fig9_rows: dict) -> None:
     """A frontier sweep's batched shape: one _chunked_summaries call over 64 async
     points at window 600; the rows at targets 0.7 and 1.0 held to the JAX package's,
-    four more points run alone and held to their batched rows."""
+    SWEEP_ALONE more points run alone and held to their batched rows."""
     st, sw = fl.st, fl.ref["sweep"]
     pols = [st.JaxPolicy(**sw["policy"], target=t) for t in sw["targets"]]
     spent = {}
@@ -2207,7 +2227,7 @@ def fluid_sweep_phase(fl, trace, fig9_rows: dict) -> None:
             for t, name in sw["held"].items()}
     alone = {}
     tol = fl.tol["batched_vs_alone_rtol"]
-    for t in sw["alone"]:
+    for t in sw["alone"][:SWEEP_ALONE]:
         with part(spent, "alone"):
             row = st.simulate_chunked(trace, st.JaxPolicy(**sw["policy"], target=t),
                                       dt=sw["dt"], num_nodes=sw["num_nodes"],
@@ -3145,6 +3165,220 @@ def opt_phases(om, timed) -> None:
     timed("opt.cli", opt_cli_phase, om, cli)
 
 
+# the dry-run tooling (repro_torch.launch.{hopper,op_analysis,cells,dryrun}): the card's
+# rates measured beside the constants the dry run divides by; the op counter's figures on
+# the meta device held to the same call run on the card; the dry-run CLI as a user runs it.
+# No kernel of this repo: the dry run counts attn_impl="ref" programs
+DRYRUN_ARCH = "gemma3-4b"
+DRYRUN_PREFILL = (2, 4096)                   # B, S: the prefill phases' shape
+DRYRUN_DECODE = (2, 2048, (40, 50))          # slots, max_seq, positions: the decode profiles'
+DRYRUN_MATMUL_N = 8192
+DRYRUN_COPY_BYTES = 2 << 30
+# a reading above its constant by more than this is impossible: the constant is wrong
+DRYRUN_CONST_MARGIN = 1.05
+# the meta run's peak against max_memory_allocated: the caching allocator rounds
+# each block up to 512 B and a kernel's own scratch is allocated out of the op
+# counter's sight; both are MBs against a peak of 8-13 GB
+DRYRUN_PEAK_RTOL = 0.05
+DRYRUN_CLI_ARGV = ["--arch", "gemma3-4b", "--shape", "decode_32k"]
+DRYRUN_CLI_TIMEOUT = 300
+
+
+def dryrun_modules():
+    from repro_torch.launch import cells, dryrun, hopper, op_analysis
+    return types.SimpleNamespace(cells=cells, dryrun=dryrun, hopper=hopper, op=op_analysis)
+
+
+def event_ms(fn, iters: int) -> list:
+    """Each call's device time (CUDA events around it), in ms."""
+    pairs = []
+    for _ in range(iters):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize()
+    return [s.elapsed_time(e) for s, e in pairs]
+
+
+def dryrun_constants_phase(dm) -> None:
+    """A bf16 matmul of 8192^3 (median of 20 after warm-up) and a 2 GiB
+    device-to-device copy (read plus write bytes over the median of 10):
+    each reading beside the constant launch.hopper holds for it, and no
+    reading above DRYRUN_CONST_MARGIN x its constant."""
+    h, n = dm.hopper, DRYRUN_MATMUL_N
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    a = torch.randn((n, n), generator=gen, dtype=torch.bfloat16, device=DEVICE)
+    b = torch.randn((n, n), generator=gen, dtype=torch.bfloat16, device=DEVICE)
+    event_ms(lambda: torch.matmul(a, b), 5)
+    mm_ms = statistics.median(event_ms(lambda: torch.matmul(a, b), 20))
+    flops = 2 * n ** 3 / (mm_ms / 1e3)
+    del a, b
+    src = torch.ones(DRYRUN_COPY_BYTES, dtype=torch.uint8, device=DEVICE)
+    dst = torch.empty_like(src)
+    event_ms(lambda: dst.copy_(src), 3)
+    copy_ms = statistics.median(event_ms(lambda: dst.copy_(src), 10))
+    rate = 2 * DRYRUN_COPY_BYTES / (copy_ms / 1e3)
+    del src, dst
+    free_cuda()
+    for name, got, const in (("matmul", flops, h.PEAK_FLOPS), ("copy", rate, h.HBM_BW)):
+        if not got <= DRYRUN_CONST_MARGIN * const:
+            raise AssertionError(f"dryrun.constants: the {name} reading {got:.4g}/s is above "
+                                 f"{DRYRUN_CONST_MARGIN} x its constant {const:.4g}/s")
+    phase("dryrun.constants", matmul=f"bf16 {n}^3, median of 20", matmul_ms=f"{mm_ms:.4f}",
+          matmul_tflops=f"{flops / 1e12:.1f}", peak_flops_const=f"{h.PEAK_FLOPS / 1e12:.0f}e12",
+          matmul_share=f"{flops / h.PEAK_FLOPS:.3f}",
+          copy=f"{DRYRUN_COPY_BYTES} B device to device, median of 10",
+          copy_ms=f"{copy_ms:.4f}", copy_gbps=f"{rate / 1e9:.1f}",
+          hbm_bw_const=f"{h.HBM_BW / 1e9:.0f}e9", copy_share=f"{rate / h.HBM_BW:.3f}",
+          link_bw_const=f"{h.LINK_BW / 1e9:.0f}e9", link="not measured: one card visible",
+          constants_of=repr(h.CARD))
+
+
+def dryrun_case(registry, cfg, kind: str, device, params):
+    """The check's prefill (B 2, S 4096) or decode step (2 slots, max_seq
+    2048, positions 40 and 50) on ``device`` -> (fn, args)."""
+    def tokens(shape):
+        if torch.device(device).type == "meta":
+            return torch.empty(shape, dtype=torch.int32, device=device)
+        gen = torch.Generator(device=device).manual_seed(1)
+        return torch.randint(0, cfg.vocab_size, shape, generator=gen, device=device,
+                             dtype=torch.int32)
+    if kind == "prefill":
+        b, s = DRYRUN_PREFILL
+        cache = registry.init_cache(cfg, b, s, device=device)
+        return (lambda p, c, bt: registry.prefill(cfg, p, c, bt)), \
+            (params, cache, {"tokens": tokens((b, s))})
+    slots, max_seq, pos = DRYRUN_DECODE
+    cache = registry.init_cache(cfg, slots, max_seq, device=device)
+    return (lambda p, c, t, ps: registry.decode_step(cfg, p, c, t, ps)), \
+        (params, cache, tokens((slots, 1)), torch.tensor(pos, dtype=torch.int32, device=device))
+
+
+def dryrun_check_phase(dm, registry, get_config) -> None:
+    """gemma3-4b's plain-path prefill and decode step (the dry run's serving
+    configs) counted on the meta device and run on the card: the counted
+    matmul FLOPs equal to FlopCounterMode's count of the card's run, the
+    arguments' bytes equal, the counted peak within DRYRUN_PEAK_RTOL of
+    max_memory_allocated (above what the process held before, plus the
+    arguments), and the roofline bound (the larger of FLOPs over
+    PEAK_FLOPS and bytes over HBM_BW) at most the call's time on CUDA
+    events; the profiled device busy time beside it."""
+    from torch.utils.flop_counter import FlopCounterMode
+    h = dm.hopper
+    base = get_config(DRYRUN_ARCH)
+    pcfg = dm.cells.serving_config(base, "prefill")
+    meta_params = registry.init_params(pcfg, device="meta")
+    free_cuda()
+    params = registry.init_params(pcfg, device=DEVICE, seed=0)
+    for kind in ("prefill", "decode"):
+        cfg = dm.cells.serving_config(base, kind)
+        fn, margs = dryrun_case(registry, cfg, kind, "meta", meta_params)
+        t0 = time.monotonic()
+        r = dm.op.analyze(fn, *margs)
+        count_s = time.monotonic() - t0
+        fn, args = dryrun_case(registry, cfg, kind, DEVICE, params)
+        arg_bytes = dm.op.storage_bytes(args)
+        with torch.no_grad():
+            fn(*args)                                  # warm-up: cuBLAS handles, workspaces
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            call_ms = event_ms(lambda: fn(*args), 1)[0]
+            peak = torch.cuda.max_memory_allocated() - before + arg_bytes
+            _, kern, spans = device_kernels(lambda: fn(*args), cpu=False)
+            with FlopCounterMode(display=False) as fc:
+                fn(*args)
+        busy_ms = covered_us([(s, e) for _, s, e in spans]) / 1e3
+        compute_ms = r["flops_per_device"] / h.PEAK_FLOPS * 1e3
+        memory_ms = r["bytes_per_device"] / h.HBM_BW * 1e3
+        bound_ms = max(compute_ms, memory_ms)
+        label = f"dryrun.check.{kind}"
+        if r["matmul_flops"] != fc.get_total_flops():
+            raise AssertionError(f"{label}: counted matmul FLOPs {r['matmul_flops']} against "
+                                 f"FlopCounterMode's {fc.get_total_flops()}")
+        if r["argument_bytes"] != arg_bytes:
+            raise AssertionError(f"{label}: counted arguments {r['argument_bytes']} B, "
+                                 f"the card's {arg_bytes} B")
+        if not abs(r["peak_bytes"] - peak) <= DRYRUN_PEAK_RTOL * peak:
+            raise AssertionError(f"{label}: counted peak {r['peak_bytes']} B against "
+                                 f"{peak} B on the card")
+        if not bound_ms <= call_ms:
+            raise AssertionError(f"{label}: the bound {bound_ms:.3f} ms is above the call's "
+                                 f"{call_ms:.3f} ms on the card")
+        phase(label, arch=DRYRUN_ARCH, attn_impl=cfg.attn_impl,
+              shape=DRYRUN_PREFILL if kind == "prefill" else DRYRUN_DECODE,
+              count_s=f"{count_s:.2f}", ops=r["ops"], matmul_flops=r["matmul_flops"],
+              flop_counter_mode=fc.get_total_flops(), flops=r["flops_per_device"],
+              bytes=r["bytes_per_device"], argument_bytes=arg_bytes,
+              peak_counted=r["peak_bytes"], peak_card=peak,
+              peak_rel_err=f"{(r['peak_bytes'] - peak) / peak:.5f}",
+              compute_ms=f"{compute_ms:.3f}", memory_ms=f"{memory_ms:.3f}",
+              bound_ms=f"{bound_ms:.3f}", call_ms_events=f"{call_ms:.3f}",
+              busy_ms_profiled=f"{busy_ms:.3f}", kernels=sum(k.count for k in kern),
+              events_over_bound=f"{call_ms / bound_ms:.3f}",
+              busy_over_bound=f"{busy_ms / bound_ms:.3f}")
+        del fn, args
+    del params
+    free_cuda()
+
+
+def dryrun_cli_start() -> tuple:
+    """Start python -m repro_torch.launch.dryrun --arch gemma3-4b --shape decode_32k
+    as a user runs it (the meta device: no card needed) -> (start, process, its
+    artifact), for dryrun_cli_phase to wait on; it runs beside the other dryrun
+    phases."""
+    art = ROOT / "artifacts" / "dryrun_torch" / "gemma3-4b__decode_32k__16x16.json"
+    art.unlink(missing_ok=True)
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src") + (os.pathsep + path if path else ""))
+    return time.monotonic(), art, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_CLI_ARGV], env=env,
+        cwd=ROOT, text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def dryrun_cli_phase(started: tuple) -> None:
+    """Wait for the dry-run CLI that dryrun_cli_start began: exit 0, and its
+    artifact written with the JAX CLI's keys, the collective term null."""
+    t0, art, proc = started
+    try:
+        stdout, stderr = proc.communicate(timeout=DRYRUN_CLI_TIMEOUT)
+    finally:
+        stop_processes([started])
+    wall = time.monotonic() - t0
+    if proc.returncode != 0 or not art.exists():
+        raise AssertionError(f"dryrun.cli: exit {proc.returncode}, artifact written: "
+                             f"{art.exists()}; {stderr[-2000:]}")
+    d = json.loads(art.read_text())
+    keys = {"arch", "shape", "mesh", "n_chips", "lower_s", "compile_s", "memory",
+            "xla_cost_analysis", "per_device", "collectives", "roofline_s", "bottleneck"}
+    if not keys <= d.keys() or d["roofline_s"]["collective"] is not None:
+        raise AssertionError(f"dryrun.cli: artifact {sorted(d)}")
+    phase("dryrun.cli", argv=" ".join(DRYRUN_CLI_ARGV), rc=proc.returncode,
+          collected_after_s=f"{wall:.2f}", mesh=d["mesh"], lower_s=d["lower_s"],
+          roofline_ms={k: None if v is None else f"{v * 1e3:.4f}"
+                       for k, v in d["roofline_s"].items()},
+          bottleneck=d["bottleneck"], argument_gib_per_device=
+          f"{d['memory']['argument_bytes'] / 2**30:.3f}", stdout=repr(stdout.strip()[-200:]))
+
+
+def dryrun_phases(dm, registry, get_config, timed, beside=lambda: None):
+    """The dryrun.* phases, each through ``timed``: the CLI starts first and
+    goes on (on the host's CPU alone) beside the other two and then beside
+    ``beside()``, whose result is returned once the CLI is collected."""
+    cli = dryrun_cli_start()
+    try:
+        timed("dryrun.constants", dryrun_constants_phase, dm)
+        timed("dryrun.check", dryrun_check_phase, dm, registry, get_config)
+        out = beside()
+    except BaseException:
+        stop_processes([cli])
+        raise
+    timed("dryrun.cli", dryrun_cli_phase, cli)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one NVIDIA GPU", file=sys.stderr)
@@ -3204,18 +3438,24 @@ def main() -> int:
     k2 = timed("kernel.flash_attention", flash_attention_phase, k2_ops, flash_attention_ref,
                flash_attention_bf16p_ref, visible, k2_ops.build)
     k4 = timed("kernel.rwkv6_scan", rwkv6_scan_phase, k4_ops, rwkv6_scan_ref)
-
     gemma = bf16("gemma3-4b")
-    paths["model.gemma3-4b"] = timed("model.gemma3-4b", model_phase, gemma, 3_879_925_248,
-                                     8_087_006_208, *model_args)
-    # 4 x ~8.1 GB resident, well under 80 GB
-    paths["serve.gemma3-4b"] = timed(
-        "serve.gemma3-4b", serve_phase, gemma, *serve_args, n_requests=8,
-        prompt_lens=(32, 128), max_new_tokens=16, max_replicas=4)
     prefill_args = (kernels, plain, registry, stack)
-    paths.update(timed("prefill.gemma3-4b", prefill_phase, gemma, 3_879_925_248,
-                       *prefill_args, batch=PREFILL_B, seq=PREFILL_S_GEMMA,
-                       decode_steps=DECODE_AFTER, hold_logits=True))
+
+    def gemma_phases() -> dict:
+        out = {"model.gemma3-4b": timed("model.gemma3-4b", model_phase, gemma, 3_879_925_248,
+                                        8_087_006_208, *model_args)}
+        # 4 x ~8.1 GB resident, well under 80 GB
+        out["serve.gemma3-4b"] = timed(
+            "serve.gemma3-4b", serve_phase, gemma, *serve_args, n_requests=8,
+            prompt_lens=(32, 128), max_new_tokens=16, max_replicas=4)
+        out.update(timed("prefill.gemma3-4b", prefill_phase, gemma, 3_879_925_248,
+                         *prefill_args, batch=PREFILL_B, seq=PREFILL_S_GEMMA,
+                         decode_steps=DECODE_AFTER, hold_logits=True))
+        return out
+
+    # the dry-run tooling: the card's rates, the op counter against a real run, and the
+    # dry-run CLI, which goes on beside gemma3-4b's phases
+    paths.update(dryrun_phases(dryrun_modules(), registry, get_config, timed, gemma_phases))
 
     moe = bf16("deepseek-moe-16b")
     paths["model.deepseek-moe-16b"] = timed(

@@ -1,5 +1,7 @@
 from repro_torch.configs.base import (  # noqa: F401
     ModelConfig,
+    ShapeConfig,
+    SHAPES,
     get_config,
     get_smoke_config,
     list_archs,

@@ -106,9 +106,31 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    # -- analytic parameter counts (for the roofline's model FLOPs) --------------
     def param_count(self) -> int:
         from repro_torch.models import registry
         return registry.param_count(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models import registry
+        return registry.param_count(self, active_only=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+# the dry run's shape grid (``repro_torch.launch.cells``), the JAX package's
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
@@ -132,3 +154,15 @@ def get_smoke_config(name: str) -> ModelConfig:
 
 def list_archs() -> list[str]:
     return sorted(_REGISTRY)
+
+
+# Which (arch, shape) cells are exercised: long_500k only for the archs with
+# sub-quadratic or local attention.
+LONG_CTX_ARCHS = {"gemma3-4b", "gemma2-27b", "rwkv6-3b", "hymba-1.5b"}
+
+
+def cells(arch: str) -> list[str]:
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if arch in LONG_CTX_ARCHS:
+        out.append("long_500k")
+    return out

@@ -156,7 +156,7 @@ def logical_to_spec(logical: Sequence[Optional[str]], mesh: Optional[Mesh] = Non
     return tuple(_resolve(a, mesh_axes) for a in logical)
 
 
-def _placements(spec: Spec, mesh: Mesh) -> tuple:
+def placements(spec: Spec, mesh: Mesh) -> tuple:
     """DTensor placements of ``spec`` on ``mesh``, one per mesh axis:
     ``Shard(dim)`` where that axis shards tensor dim ``dim``, else
     ``Replicate()``."""
@@ -170,13 +170,21 @@ def _placements(spec: Spec, mesh: Mesh) -> tuple:
     return tuple(out[a] for a in mesh.axis_names)
 
 
+def physical_spec(logical: Optional[Sequence[Optional[str]]], shape: Sequence[int],
+                  mesh: Mesh) -> Spec:
+    """The spec a leaf of logical spec ``logical`` and shape ``shape`` gets
+    on ``mesh``: translated, then sanitized (the JAX package's
+    ``launch.cells._with_shardings``, leaf by leaf)."""
+    return sanitize_spec(logical_to_spec(logical or (), mesh), shape, mesh)
+
+
 def sharding_for(logical: Sequence[Optional[str]], mesh: Optional[Mesh] = None):
     """The placements of a logical spec on the (ambient) mesh; ``None``
     without one."""
     mesh = mesh or current_mesh()
     if mesh is None:
         return None
-    return _placements(logical_to_spec(logical, mesh), mesh)
+    return placements(logical_to_spec(logical, mesh), mesh)
 
 
 def device_mesh(devices: int, axis: str, device=None) -> Mesh:
@@ -227,7 +235,7 @@ def shard(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
     if not isinstance(x, DTensor):
         return x
     spec = sanitize_spec(logical_to_spec(logical, mesh), x.shape, mesh)
-    return x.redistribute(x.device_mesh, _placements(spec, mesh))
+    return x.redistribute(x.device_mesh, placements(spec, mesh))
 
 
 def mesh_axis_size(logical_axis: str, mesh: Optional[Mesh] = None) -> int:
@@ -276,7 +284,7 @@ def tree_map_specs(fn, spec_tree: Any, *rest: Any) -> Any:
 def spec_tree_to_shardings(spec_tree: Any, mesh: Mesh) -> Any:
     """Convert a tree of logical-axis tuples into placements (see
     :func:`sharding_for`); a ``None`` leaf is replicated."""
-    return tree_map_specs(lambda leaf: _placements(
+    return tree_map_specs(lambda leaf: placements(
         () if leaf is None else logical_to_spec(leaf, mesh), mesh), spec_tree)
 
 

@@ -98,6 +98,18 @@ def leaves(tree) -> list[torch.Tensor]:
 
 
 @functools.lru_cache(maxsize=64)
-def param_count(cfg: ModelConfig) -> int:
-    """Parameters of ``cfg``, counted on the meta device (nothing allocated)."""
+def _param_count_cached(cfg: ModelConfig) -> int:
     return sum(t.numel() for t in leaves(init_params(cfg, device="meta")))
+
+
+def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Parameters of ``cfg``, counted on the meta device (nothing allocated);
+    ``active_only`` leaves out the routed experts a token does not reach
+    (``num_experts - top_k`` of them in every moe layer)."""
+    total = _param_count_cached(cfg)
+    if not active_only or cfg.num_experts == 0:
+        return total
+    n_moe_layers = cfg.num_layers - cfg.first_dense_layers
+    per_expert = 3 * cfg.d_model * cfg.moe_d_ff
+    inactive = n_moe_layers * (cfg.num_experts - cfg.top_k) * per_expert
+    return total - inactive

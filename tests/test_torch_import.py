@@ -54,7 +54,8 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                 "launch.clitext", "opt", "opt.frontier", "opt.space", "opt.search",
                 "opt.learned", "opt.evo", "opt.evo.budget", "opt.evo.nsga", "opt.evo.genome",
                 "opt.evo.engine", "fleet.sweep", "launch.frontier", "distributed",
-                "distributed.sharding", "launch.mesh"):
+                "distributed.sharding", "launch.mesh", "launch.hopper", "launch.op_analysis",
+                "launch.cells", "launch.dryrun", "launch.hillclimb", "launch.report"):
         assert f"repro_torch.{mod}" in mods, mod
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

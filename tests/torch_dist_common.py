@@ -15,7 +15,11 @@ JSON).  A job is a dict:
 * ``{"kind": "scenario", "name", "spec": {...}}`` -> ``run_scenario``'s rows;
 * ``{"kind": "evaluate_scenario", "name", "points", "spec": {...}}``;
 * ``{"kind": "cli", "module", "argv"}`` -> ``{"rc", "out"}`` of the CLI's
-  ``main``.
+  ``main``;
+* ``{"kind": "dryrun_cell", "arch", "smoke", "overrides", "shape", "mesh":
+  [sizes, names]}`` -> ``jax_cell_figures``' dict: the JAX package's dry-run
+  cell (``repro.launch.cells.build_cell``) compiled on that mesh of the
+  forced host devices.
 
 ``T`` names a trace: ``{"kind": "events" | "rates", "config": {...},
 "tick_s": s}``, plus ``"cluster_below": rps`` to cluster a rate trace.
@@ -76,10 +80,86 @@ def _jsonable(x):
     return x
 
 
+def hlo_dot_flops(txt: str) -> float:
+    """The dot and convolution FLOPs of optimized HLO text, through fusions,
+    calls and conditionals, and through loops by their trip count: the
+    matmul part of ``repro.launch.hlo_analysis``' count."""
+    import re
+
+    from repro.launch.hlo_analysis import HloCostModel
+    model = HloCostModel(txt)
+    memo: dict[str, float] = {}
+
+    def comp(name: str) -> float:
+        if name in memo:
+            return memo[name]
+        memo[name] = 0.0
+        ops = model.comps.get(name, [])
+        shapes = {op.name: op.type_str for op in ops}
+        total = 0.0
+        for op in ops:
+            if op.opcode == "dot":
+                total += model._dot_flops(op, shapes)
+            elif op.opcode == "convolution":
+                total += model._conv_flops(op, shapes)
+            elif op.opcode == "while":
+                m = re.search(r"known_trip_count\D*?(\d+)", op.attrs)
+                trip = float(m.group(1)) if m else 1.0
+                for key in ("body", "condition"):
+                    total += trip * sum(comp(c) for c in model._called(op.attrs, key))
+            else:
+                keys = {"fusion": ("calls",), "call": ("to_apply", "called_computations"),
+                        "async-start": ("to_apply", "called_computations"),
+                        "conditional": ("branch_computations", "true_computation",
+                                        "false_computation")}.get(op.opcode, ())
+                for key in keys:
+                    total += sum(comp(c) for c in model._called(op.attrs, key))
+        memo[name] = total
+        return total
+    return comp("__entry__")
+
+
+def jax_cell_figures(job: dict) -> dict:
+    """The JAX package's dry-run cell compiled on a mesh of auto axes ->
+    ``{"argument_bytes"`` (``memory_analysis``, per device),
+    ``"dot_flops"`` (``hlo_dot_flops``), ``"n_microbatches"``, ``"donate"``,
+    ``"pruned"`` / ``"pruned_bytes"}``: the argument leaves the compiled
+    program does not take (XLA drops an unused argument) and their bytes a
+    device.  A smoke or a full config, with ``overrides``."""
+    import math
+
+    import jax
+    from jax.sharding import AxisType
+
+    from repro.configs import get_config, get_smoke_config
+    from repro.configs.base import SHAPES
+    from repro.launch import cells as jcells
+    cfg = (get_smoke_config if job["smoke"] else get_config)(job["arch"])
+    cfg = cfg.replace(**job.get("overrides", {}))
+    sizes, names = job["mesh"]
+    mesh = jax.make_mesh(tuple(sizes), tuple(names), axis_types=(AxisType.Auto,) * len(sizes))
+    fn, args, donate = jcells.build_cell(cfg, job["shape"], mesh)
+    comp = jax.jit(fn, donate_argnums=donate).lower(*args).compile()
+    shape = SHAPES[job["shape"]]
+    kept = set(comp._executable._kept_var_idx)
+    leaves = jax.tree_util.tree_flatten_with_path(args)[0]
+    pruned = [(jax.tree_util.keystr(p), sd) for i, (p, sd) in enumerate(leaves) if i not in kept]
+    return {"argument_bytes": comp.memory_analysis().argument_size_in_bytes,
+            "pruned": [p for p, _ in pruned],
+            "pruned_bytes": sum(math.prod(sd.sharding.shard_shape(sd.shape)) * sd.dtype.itemsize
+                                for _, sd in pruned),
+            "dot_flops": hlo_dot_flops(comp.as_text()),
+            "n_microbatches": jcells.default_microbatches(cfg, shape, mesh)
+            if shape.kind == "train" else 1,
+            "donate": list(donate)}
+
+
 def _run_job(job: dict):
     """One job, under the forced host devices (the subprocess side)."""
     from repro.core.runspec import RunSpec
     kind = job["kind"]
+    if kind == "dryrun_cell":
+        return jax_cell_figures(job)
     if kind == "cli":
         import importlib
         main = importlib.import_module(job["module"]).main
