@@ -66,6 +66,19 @@ card's name and power limit as nvidia-smi gives them on a line of its own):
                   --arch gemma3-4b --shape decode_32k as a subprocess beside
                   the other two and gemma3-4b's model, serve and prefill
                   phases: exit 0 and its artifact)
+  mesh.*          the families under a multi-device mesh (repro_torch.distributed.
+                  sharding; attn_impl="ref", no kernel of this repo): mesh.hold
+                  (gemma3-4b at full width, bf16, on a (1, 2) mesh of two ranks
+                  on cuda:0, a threaded process group: DTensor parameters, a
+                  prefill at B 2, S 1024 and 4 greedy decode steps held to the
+                  unsharded run, tokens equal and logits within 5e-2 of the
+                  largest; the ranks' resident bytes, their joint peak and
+                  walls); mesh.rank (one rank of gemma3-4b's decode_32k cell on
+                  16x16 run on the card at its local shapes under a fake group
+                  of 256 ranks beside its meta count: matmul FLOPs equal to
+                  FlopCounterMode's of the card's local ops, the peak within 5%
+                  of max_memory_allocated, the collectives equal to the card
+                  run's and, by kind and count, to CommDebugMode's)
   model           one full-width replica (bf16) per arch: gemma3-4b,
                   deepseek-moe-16b, deepseek-v2-lite-16b (MLA), rwkv6-3b,
                   hymba-1.5b, whisper-tiny: parameter
@@ -146,7 +159,12 @@ card's name and power limit as nvidia-smi gives them on a line of its own):
                   the float32 slowdown solver); fluid.cpu (every family with
                   and without a fleet, the card against the CPU)
   scenario.*      the scenario and cells layers (repro_torch.scenarios,
-                  repro_torch.cells; no kernel of this repo), held to the JAX
+                  repro_torch.cells; no kernel of this repo), in a process of
+                  their own (tools/scenario_phases.py, its fluid.fig9 row
+                  computed there) started after the training phases and run
+                  beside the fluid.* and dist.* phases (as are the opt.*
+                  phases, tools/opt_phases.py --only smoke), their lines
+                  printed when it is collected; held to the JAX
                   package's rows in tests/data/torch_scenario_jax_rows.json
                   (written with jax by tests/test_torch_scenario_reference.py):
                   scenario.full (every registered scenario's fluid leg at
@@ -2721,6 +2739,43 @@ def dist_points_phase(dm) -> None:
 DIST_CLI_ARGV = ["--scenario", "fig9_planet", "--devices", str(DIST_SHARDS)]
 
 
+TOOL_PHASES_TIMEOUT = 900
+
+
+def tool_phases_start(script: str, *args: str) -> tuple:
+    """Start a tools/ script that runs some of this script's phases (scenario.* or
+    opt.*) in a process of its own -> (script, start, its output file, process), for
+    tool_phases_collect: host-bound phases go on beside the fluid and dist phases
+    (one card, several processes)."""
+    import tempfile
+    out = tempfile.TemporaryFile("w+")
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src") + (os.pathsep + path if path else ""))
+    return script, time.monotonic(), out, subprocess.Popen(
+        [sys.executable, str(ROOT / "tools" / script), *args], env=env, cwd=ROOT,
+        text=True, stdout=out, stderr=subprocess.STDOUT)
+
+
+def tool_phases_collect(started: tuple) -> None:
+    """Wait for the process tool_phases_start began and print its phase lines (its
+    env lines left out); any hold it failed fails the run here."""
+    script, t0, out, proc = started
+    try:
+        proc.wait(timeout=TOOL_PHASES_TIMEOUT)
+    finally:
+        stop_processes([started])
+    out.seek(0)
+    text = out.read()
+    out.close()
+    for line in text.splitlines():
+        if line.startswith("[") and not line.startswith("[env]"):
+            print(line, flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"tools/{script}: exit {proc.returncode}; {text[-4000:]}")
+    phase("tool", script=script, rc=proc.returncode,
+          collected_after_s=f"{time.monotonic() - t0:.2f}")
+
+
 def dist_cli_start() -> tuple:
     """Start python -m repro_torch.launch.scenarios --scenario fig9_planet --devices 2
     as a user runs it -> (start, process), for dist_cli_phase to wait on: it runs
@@ -3340,7 +3395,8 @@ def dryrun_cli_start() -> tuple:
 
 def dryrun_cli_phase(started: tuple) -> None:
     """Wait for the dry-run CLI that dryrun_cli_start began: exit 0, and its
-    artifact written with the JAX CLI's keys, the collective term null."""
+    artifact written with the JAX CLI's keys: one rank's count of the 16x16
+    mesh, with its collectives and their term."""
     t0, art, proc = started
     try:
         stdout, stderr = proc.communicate(timeout=DRYRUN_CLI_TIMEOUT)
@@ -3353,8 +3409,9 @@ def dryrun_cli_phase(started: tuple) -> None:
     d = json.loads(art.read_text())
     keys = {"arch", "shape", "mesh", "n_chips", "lower_s", "compile_s", "memory",
             "xla_cost_analysis", "per_device", "collectives", "roofline_s", "bottleneck"}
-    if not keys <= d.keys() or d["roofline_s"]["collective"] is not None:
-        raise AssertionError(f"dryrun.cli: artifact {sorted(d)}")
+    if not keys <= d.keys() or d["per_device"]["split"] != "rank" \
+            or not d["roofline_s"]["collective"] > 0 or not d["collectives"]:
+        raise AssertionError(f"dryrun.cli: artifact {sorted(d)}, {d.get('per_device')}")
     phase("dryrun.cli", argv=" ".join(DRYRUN_CLI_ARGV), rc=proc.returncode,
           collected_after_s=f"{wall:.2f}", mesh=d["mesh"], lower_s=d["lower_s"],
           roofline_ms={k: None if v is None else f"{v * 1e3:.4f}"
@@ -3377,6 +3434,241 @@ def dryrun_phases(dm, registry, get_config, timed, beside=lambda: None):
         raise
     timed("dryrun.cli", dryrun_cli_phase, cli)
     return out
+
+
+# The model families under a multi-device mesh (repro_torch.distributed.sharding): DTensor
+# parameters, the models' shard(...) calls, and the dry run's per-rank count.  NCCL takes
+# one rank a card, so the held run's two ranks share cuda:0 in one process as a threaded
+# process group (its collectives copy between the ranks' tensors: they move data); the
+# counted rank runs alone under the fake group, whose collectives move nothing.  No kernel
+# of this repo: a sharded model runs attn_impl="ref", as the JAX package's sharded path.
+MESH_ARCH = "gemma3-4b"
+MESH_HOLD = dict(sizes=(1, 2), names=("data", "model"), batch=2, seq=1024, steps=4)
+MESH_RANK = dict(shape="decode_32k", mesh="16x16")
+
+
+def mesh_modules():
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import cells, dryrun, op_analysis
+    return types.SimpleNamespace(sh=sharding, cells=cells, dryrun=dryrun, op=op_analysis)
+
+
+def threaded_ranks(world: int, fn) -> list:
+    """``fn(rank)`` on ``world`` threads, each a rank of a threaded process
+    group -> the results by rank; the first rank's error is raised."""
+    import threading
+
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.multi_threaded_pg import (
+        ProcessLocalGroup, _install_threaded_pg, _uninstall_threaded_pg)
+    _install_threaded_pg()
+    store = dist.HashStore()
+    torch._C._distributed_c10d._set_thread_isolation_mode(True)
+    out, errs = [None] * world, []
+
+    def run(rank):
+        # the group goes with _uninstall_threaded_pg (destroy_process_group
+        # does not know the threaded world in every torch release)
+        try:
+            dist.init_process_group("threaded", rank=rank, world_size=world, store=store)
+            out[rank] = fn(rank)
+        except BaseException as e:            # noqa: BLE001 - handed to the caller
+            errs.append(e)
+            ProcessLocalGroup.exception_handle(e)
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(world)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        torch._C._distributed_c10d._set_thread_isolation_mode(False)
+        _uninstall_threaded_pg()
+    if errs:
+        raise errs[0]
+    return out
+
+
+def mesh_hold_phase(ms, registry, get_config, card: str) -> None:
+    """gemma3-4b at full width in its bf16 serving config (attn_impl="ref") on a
+    (1, 2) ("data", "model") mesh of two ranks on cuda:0: the parameters,
+    cache and prompt placed as DTensors by their spec trees, a prefill at
+    B 2, S 1024 and 4 greedy decode steps fed the unsharded run's tokens,
+    held to the unsharded run on the card: the greedy tokens equal and the
+    logits within PREFILL_VS_REF_BOUND (max |diff| / max |logit|)."""
+    h = MESH_HOLD
+    cfg = ms.cells.serving_config(get_config(MESH_ARCH), "prefill")
+    mesh = ms.sh.Mesh(h["names"], h["sizes"])
+    b, s, steps = h["batch"], h["seq"], h["steps"]
+    free_cuda()
+    params = registry.init_params(cfg, device=DEVICE, seed=0)
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    prompt = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                      device=DEVICE, dtype=torch.int32)}
+
+    def calls(p, cache, batch, feed, lp):
+        """prefill + decode steps -> (logits of each, as bf16 on the card, whole)."""
+        lg, cache = registry.prefill(cfg, p, cache, batch)
+        outs = [lp(lg)]
+        for i in range(steps):
+            pos = torch.full((b,), s + i, dtype=torch.int32, device=DEVICE)
+            lg, cache = registry.decode_step(cfg, p, cache, feed[:, i:i + 1], pos)
+            outs.append(lp(lg))
+        return outs
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with torch.no_grad():
+        cache = registry.init_cache(cfg, b, s + steps, device=DEVICE)
+        lg, cache = registry.prefill(cfg, params, cache, prompt)
+        ref, feed = [lg[:, -1:]], []
+        for i in range(steps):
+            feed.append(ref[-1].argmax(-1).to(torch.int32))
+            pos = torch.full((b,), s + i, dtype=torch.int32, device=DEVICE)
+            lg, cache = registry.decode_step(cfg, params, cache, feed[-1], pos)
+            ref.append(lg)
+        full_prefill = registry.prefill(cfg, params, registry.init_cache(
+            cfg, b, s + steps, device=DEVICE), prompt)[0]
+    feed = torch.cat(feed, dim=1)
+    torch.cuda.synchronize()
+    plain_s = time.monotonic() - t0
+    del cache
+    free_cuda()
+    with ms.sh.use_mesh(mesh):
+        pspecs, cspecs = registry.param_specs(cfg), registry.cache_specs(cfg)
+    resident = {}
+
+    def rank(r):
+        dm = ms.sh.dtensor_mesh(mesh, torch.device(DEVICE).type)
+        dp = ms.sh.distribute_tree(params, pspecs, dm)
+        dcache = ms.sh.distribute_tree(registry.init_cache(cfg, b, s + steps, device=DEVICE),
+                                       cspecs, dm)
+        dbatch = ms.sh.distribute_tree(prompt, registry.batch_specs(cfg), dm)
+        dfeed = ms.sh.distribute_leaf(feed, ("batch", None), dm)
+        local = ms.op.storage_bytes((dp, dcache))
+        with torch.no_grad(), ms.sh.use_mesh(mesh):
+            t = time.monotonic()
+            outs = calls(dp, dcache, dbatch, dfeed, lambda x: x.full_tensor())
+            torch.cuda.synchronize()
+            resident[r] = local
+            return outs, time.monotonic() - t
+
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    with ms.sh.use_mesh(mesh):               # implicit replication on for both ranks
+        res = threaded_ranks(mesh.size, rank)
+    peak = torch.cuda.max_memory_allocated() - before
+    errs, tokens_equal = [], True
+    for r, (outs, _) in enumerate(res):
+        errs.append(rel_max_err(outs[0], full_prefill))
+        for i in range(steps):
+            errs.append(rel_max_err(outs[i + 1], ref[i + 1]))
+            tokens_equal &= bool((outs[i][:, -1:].argmax(-1) == feed[:, i:i + 1]).all())
+    worst = max(errs)
+    walls = [f"{w:.2f}" for _, w in res]
+    del params, full_prefill, ref, res
+    free_cuda()
+    if not tokens_equal or not worst <= PREFILL_VS_REF_BOUND:
+        raise AssertionError(f"mesh.hold: greedy tokens equal {tokens_equal}, logits "
+                             f"rel err {worst:.4g} (bound {PREFILL_VS_REF_BOUND})")
+    phase("mesh.hold", arch=MESH_ARCH, mesh=dict(zip(h["names"], h["sizes"])),
+          group="threaded (one process, two ranks on cuda:0)", batch=b, seq=s,
+          decode_steps=steps, greedy_tokens_equal=tokens_equal,
+          logits_rel_err_max=f"{worst:.4g}", bound=PREFILL_VS_REF_BOUND,
+          rank_params_cache_bytes=resident, peak_bytes_both_ranks=peak,
+          peak_note="one process holds both ranks: the peak is theirs together",
+          sharded_wall_s_by_rank=walls, plain_wall_s=f"{plain_s:.2f}", card=card)
+
+
+def mesh_rank_phase(ms, get_config, card: str) -> None:
+    """One rank of gemma3-4b's decode_32k cell on the 16x16 mesh, run for real
+    on cuda:0 at its local shapes under a fake group of 256 ranks, beside the
+    same rank counted on the meta device: the counted matmul FLOPs equal to
+    FlopCounterMode's count of the card's local ops, the counted peak within
+    DRYRUN_PEAK_RTOL of max_memory_allocated, and the counted collectives
+    (kind, count, bytes) equal to the card run's, whose kinds and counts
+    equal CommDebugMode's."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    class LocalFlops(FlopCounterMode):
+        """FlopCounterMode on the rank's local ops (a DTensor op is left to
+        DTensor's dispatch, whose local op comes back here; propagation's
+        fake-tensor ops are not counted)."""
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            if any(t is not torch.Tensor and t is not torch.nn.Parameter for t in types):
+                return func(*args, **(kwargs or {}))
+            return super().__torch_dispatch__(func, types, args, kwargs)
+
+    cfg = get_config(MESH_ARCH)
+    mesh = ms.dryrun.make_mesh(MESH_RANK["mesh"])
+    t0 = time.monotonic()
+    _, _, meta = ms.dryrun.count_rank(cfg, MESH_RANK["shape"], mesh)
+    count_s = time.monotonic() - t0
+    free_cuda()
+    with ms.sh.fake_group(mesh.size):
+        dm = ms.sh.dtensor_mesh(mesh, torch.device(DEVICE).type)
+        cell, args, _ = ms.cells.build_cell(cfg, MESH_RANK["shape"], mesh, dmesh=dm)
+
+        def real(x):
+            if isinstance(x, DTensor):
+                loc = x.to_local()
+                t = (torch.zeros(loc.shape, dtype=loc.dtype, device=DEVICE)
+                     if not loc.is_floating_point() else
+                     torch.randn(loc.shape, device=DEVICE).to(loc.dtype))
+                return DTensor.from_local(t, dm, x.placements, run_check=False,
+                                          shape=x.shape, stride=x.stride())
+            if isinstance(x, dict):
+                return {k: real(v) for k, v in x.items()}
+            if isinstance(x, (list, tuple)):
+                return type(x)(real(v) for v in x)
+            return x
+        args = real(args)
+        torch.cuda.synchronize()
+        arg_bytes = ms.op.storage_bytes(args)
+        with torch.no_grad():
+            cell(*args)                               # warm-up: cuBLAS handles, workspaces
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.monotonic()
+            cell(*args)
+            torch.cuda.synchronize()
+            step_s = time.monotonic() - t1
+            peak = torch.cuda.max_memory_allocated() - before + arg_bytes
+            run = ms.op.analyze(cell, *args)
+            with LocalFlops(display=False) as fc, CommDebugMode() as comm:
+                cell(*args)
+        comm_counts = {str(k).split(".")[-1]: v for k, v in comm.get_comm_counts().items()}
+        del args
+    free_cuda()
+    names = ms.op.COLLECTIVES
+    debug = {}
+    for k, v in comm_counts.items():
+        debug[names[k]] = debug.get(names[k], 0) + v
+    label = "mesh.rank"
+    if meta["matmul_flops"] != fc.get_total_flops():
+        raise AssertionError(f"{label}: counted matmul FLOPs {meta['matmul_flops']} against "
+                             f"FlopCounterMode's {fc.get_total_flops()} on the card")
+    if not abs(meta["peak_bytes"] - peak) <= DRYRUN_PEAK_RTOL * peak:
+        raise AssertionError(f"{label}: counted peak {meta['peak_bytes']} B against "
+                             f"{peak} B on the card")
+    if meta["collectives"] != run["collectives"] or \
+            {k: v["count"] for k, v in meta["collectives"].items()} != debug:
+        raise AssertionError(f"{label}: counted collectives {meta['collectives']}, the card "
+                             f"run's {run['collectives']}, CommDebugMode's {debug}")
+    phase(label, arch=MESH_ARCH, shape=MESH_RANK["shape"], mesh=MESH_RANK["mesh"],
+          rank=0, group=f"fake ({mesh.size} ranks)", count_s=f"{count_s:.2f}",
+          matmul_flops=meta["matmul_flops"], flop_counter_mode=fc.get_total_flops(),
+          argument_bytes=meta["argument_bytes"], peak_counted=meta["peak_bytes"],
+          peak_card=peak, peak_rel_err=f"{(meta['peak_bytes'] - peak) / peak:.5f}",
+          collectives=meta["collectives"], comm_debug_mode=debug,
+          collective_bytes=meta["collective_bytes_per_device"],
+          step_s_card=f"{step_s:.3f}", card=card)
 
 
 def main() -> int:
@@ -3430,7 +3722,7 @@ def main() -> int:
 
     model_args = (kernels, plain, registry, stack, ModelReplica, ServeRequest)
     serve_args = (kernels, stack, ControlPlane, TorchWorkerBackend, make_policy, ServeRequest)
-    timed("env", env_phase)
+    card = timed("env", env_phase)
     timed("build", build_phase, kernels)
     k1 = timed("kernel", kernel_phase, k1_ops, decode_attention_ref, decode_attention_f64_ref)
     k3 = timed("kernel.moe_gemm", moe_gemm_phase, k3_ops, moe_expert_ffn_ref,
@@ -3456,6 +3748,11 @@ def main() -> int:
     # the dry-run tooling: the card's rates, the op counter against a real run, and the
     # dry-run CLI, which goes on beside gemma3-4b's phases
     paths.update(dryrun_phases(dryrun_modules(), registry, get_config, timed, gemma_phases))
+    # the families under a multi-device mesh: gemma3-4b's two ranks held to its unsharded
+    # run, and one rank of the dry run's 16x16 cell run for real beside its count
+    ms = mesh_modules()
+    timed("mesh.hold", mesh_hold_phase, ms, registry, get_config, card)
+    timed("mesh.rank", mesh_rank_phase, ms, get_config, card)
 
     moe = bf16("deepseek-moe-16b")
     paths["model.deepseek-moe-16b"] = timed(
@@ -3533,45 +3830,50 @@ def main() -> int:
     timed("train.no_kernel_grad", no_kernel_grad_phase, kernels, plain, get_smoke_config,
           registry, tr)
 
-    # the fluid simulator at full size: no kernel of this repo on its path
-    free_cuda()
-    fl = fluid_modules()
-    fig9 = timed("fluid.trace", fluid_trace_phase, fl)
-    fig9_rows = timed("fluid.fig9", fluid_fig9_phase, fl, fig9)
-    timed("fluid.sweep", fluid_sweep_phase, fl, fig9, fig9_rows)
-    timed("fluid.fleet", fluid_fleet_phase, fl, fig9)
-    timed("fluid.telemetry", fluid_telemetry_phase, fl, fig9, fig9_rows)
-    timed("fluid.history", fluid_history_phase, fl, fig9, fig9_rows)
-    del fig9
-    free_cuda()
-    planet, planet_row = timed("fluid.planet", fluid_planet_phase, fl)
-    # the sharded run on fluid.planet's trace (RunSpec(devices=N)): no kernel of this repo
-    dm = dist_modules(fl)
-    timed("dist.planet", dist_planet_phase, dm, planet, planet_row)
-    del planet
-    free_cuda()
-    timed("dist.points", dist_points_phase, dm)
-    timed("fluid.cpu", fluid_cpu_phase, fl)
+    # the scenario and cells layers (every registered scenario) and the optimizer (grid
+    # and evo search, the learned policy, the frontier CLI) go on in processes of their
+    # own beside the fluid and dist phases; no kernel of this repo
+    tools = [tool_phases_start("scenario_phases.py"),
+             tool_phases_start("opt_phases.py", "--only", "smoke")]
 
-    # the scenario and cells layers: every registered scenario, no kernel of this repo
+    def fluid_and_dist():
+        # the fluid simulator at full size: no kernel of this repo on its path
+        free_cuda()
+        fl = fluid_modules()
+        fig9 = timed("fluid.trace", fluid_trace_phase, fl)
+        fig9_rows = timed("fluid.fig9", fluid_fig9_phase, fl, fig9)
+        timed("fluid.sweep", fluid_sweep_phase, fl, fig9, fig9_rows)
+        timed("fluid.fleet", fluid_fleet_phase, fl, fig9)
+        timed("fluid.telemetry", fluid_telemetry_phase, fl, fig9, fig9_rows)
+        timed("fluid.history", fluid_history_phase, fl, fig9, fig9_rows)
+        del fig9
+        free_cuda()
+        planet, planet_row = timed("fluid.planet", fluid_planet_phase, fl)
+        # the sharded run on fluid.planet's trace (RunSpec(devices=N)): no kernel here
+        dm = dist_modules(fl)
+        timed("dist.planet", dist_planet_phase, dm, planet, planet_row)
+        del planet
+        free_cuda()
+        timed("dist.points", dist_points_phase, dm)
+        timed("fluid.cpu", fluid_cpu_phase, fl)
+
+    try:
+        fluid_and_dist()
+    except BaseException:
+        stop_processes(tools)
+        raise
+
+    # the sharded run's CLI goes on beside the other processes' end
     free_cuda()
     sm = scenario_modules()
-    # the sharded run's CLI goes on beside the scenario phases
     dist_cli = dist_cli_start()
     try:
-        timed("scenario.full", scenario_full_phase, sm, fig9_rows)
-        parity = timed("scenario.parity", scenario_parity_phase, sm)
-        timed("scenario.cells", scenario_cells_phase, sm, parity)
-        timed("scenario.cli", scenario_cli_phase, sm)
+        timed("scenario", tool_phases_collect, tools[0])
+        timed("opt", tool_phases_collect, tools[1])
     except BaseException:
-        stop_processes([dist_cli])
+        stop_processes([dist_cli, *tools])
         raise
     timed("dist.cli", dist_cli_phase, sm, dist_cli)
-
-    # the optimizer: grid and evo search, the learned policy, the frontier CLI; no kernel
-    # of this repo
-    free_cuda()
-    opt_phases(opt_modules(), timed)
 
     def per_path(name):
         return {p: n[name] for p, n in paths.items()}

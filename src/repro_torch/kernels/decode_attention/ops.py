@@ -21,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, refuse_grad
+from repro_torch.kernels import build, refuse_dtensor, refuse_grad
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "decode_attention.cu",)
@@ -108,6 +108,7 @@ def n_split(rows: int, t: int, g: int, d: int, dtype: torch.dtype, device: torch
 def decode_attention(q, k, v, pos, *, softcap: Optional[float] = None):
     """q: (B, 1, H, D); k, v: (B, T, K, D); pos: (B,) int32 -> (B, 1, H, D)."""
     global launches
+    refuse_dtensor("decode_attention", q, k, v, pos)
     refuse_grad("decode_attention", q, k, v)
     _check(q, k, v, pos, softcap)
     if q.device.type == "cpu":

@@ -22,7 +22,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import build, refuse_grad
+from repro_torch.kernels import build, refuse_dtensor, refuse_grad
 from repro_torch.kernels.rwkv6_scan.ref import CHUNK, rwkv6_scan_ref
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "rwkv6_scan.cu",)
@@ -86,6 +86,7 @@ def _check(r, k, v, logw, u, s0) -> None:
 def rwkv6_scan(r, k, v, logw, u, s0=None):
     """r, k, v, logw: (B, T, H, D); u: (H, D); s0: (B, H, D, D) or None (zero)
     -> (y (B, T, H, D), S (B, H, D, D)), float32."""
+    refuse_dtensor("rwkv6_scan", r, k, v, logw, u, s0)
     refuse_grad("rwkv6_scan", r, k, v, logw, u, s0)
     _check(r, k, v, logw, u, s0)
     if r.device.type == "cpu":
@@ -99,6 +100,7 @@ def _launch(r, k, v, logw, u, s0, segment: int):
     """The kernel at a given segment length (a multiple of CHUNK), on checked CUDA
     tensors; ``rwkv6_scan`` takes SEGMENT, the tools time others."""
     global launches
+    refuse_dtensor("rwkv6_scan", r, k, v, logw, u, s0)
     refuse_grad("rwkv6_scan", r, k, v, logw, u, s0)
     if segment < CHUNK or segment % CHUNK:
         raise ValueError(f"segment must be a positive multiple of {CHUNK}, got {segment}")

@@ -26,7 +26,8 @@ tensors, so a cell under ``attn_impl="kernel"`` is refused.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, NamedTuple, Optional
+import math
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -76,20 +77,16 @@ def _batch(cfg: ModelConfig, shape: ShapeConfig, *, train: bool, rows: Optional[
     global batch (the dry run's microbatch trip count)."""
     b, s = rows or shape.global_batch, shape.seq_len
     batch = {"tokens": torch.empty((b, s), dtype=torch.int32, device=META)}
-    specs: dict[str, Any] = {"tokens": ("batch", None)}
     if train:
         batch["targets"] = torch.empty((b, s), dtype=torch.int32, device=META)
         batch["loss_mask"] = torch.empty((b, s), dtype=torch.float32, device=META)
-        specs["targets"] = specs["loss_mask"] = ("batch", None)
     if cfg.family == "vlm":
         batch["patch_embeds"] = torch.empty((b, cfg.num_patches, cfg.d_model),
                                             dtype=torch.bfloat16, device=META)
-        specs["patch_embeds"] = ("batch", None, "embed")
     if cfg.family == "encdec":
         batch["enc_embeds"] = torch.empty((b, cfg.encoder_seq, cfg.d_model),
                                           dtype=torch.bfloat16, device=META)
-        specs["enc_embeds"] = ("batch", None, "embed")
-    return batch, specs
+    return batch, registry.batch_specs(cfg, train=train)
 
 
 def serving_config(cfg: ModelConfig, kind: str = "decode") -> ModelConfig:
@@ -116,18 +113,24 @@ def default_microbatches(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh) -> in
 
 def build_cell(cfg: ModelConfig, shape_name: str, mesh: Mesh, *,
                fsdp: bool = True, n_microbatches: Optional[int] = None,
-               overrides: Optional[dict] = None):
+               overrides: Optional[dict] = None, dmesh=None):
     """-> (fn, args, donate): ``fn(*args)`` runs the cell on the meta
     stand-ins ``args``; ``fn`` is a :class:`Cell` that also carries the
     specs and placements of every leaf.  ``donate`` names the arguments the
-    JAX package donates (the port updates them in place)."""
+    JAX package donates (the port updates them in place).  With ``dmesh``
+    (the ``DeviceMesh`` of ``mesh`` over a process group of ``mesh.size``
+    ranks) every argument is a DTensor placed by its spec, whose local
+    shard is a meta tensor of the rank's shape: the cell runs one rank's
+    program."""
     if overrides:
         cfg = cfg.replace(**overrides)
-    return _build_cell(cfg, shape_name, mesh, fsdp=fsdp, n_microbatches=n_microbatches)
+    return _build_cell(cfg, shape_name, mesh, fsdp=fsdp, n_microbatches=n_microbatches,
+                       dmesh=dmesh)
 
 
 def _build_cell(cfg: ModelConfig, shape_name: str, mesh: Mesh, *, fsdp: bool = True,
-                n_microbatches: Optional[int] = None, batch_rows: Optional[int] = None):
+                n_microbatches: Optional[int] = None, batch_rows: Optional[int] = None,
+                dmesh=None):
     if cfg.attn_impl != "ref":
         raise ValueError(f"the dry run counts attn_impl='ref' cells; {cfg.name} has "
                          f"attn_impl={cfg.attn_impl!r}, whose kernels launch out of "
@@ -187,6 +190,8 @@ def _build_cell(cfg: ModelConfig, shape_name: str, mesh: Mesh, *, fsdp: bool = T
     placements = tuple(shlib.tree_map_specs(lambda sp: shlib.placements(sp, mesh), p)
                        for p in phys)
     cell = Cell(fn, shape.kind, phys, placements, n_micro)
+    if dmesh is not None:
+        args = tuple(shlib.distribute_tree(a, sp, dmesh) for a, sp in zip(args, logical))
     return cell, args, donate
 
 
@@ -200,18 +205,9 @@ def input_specs(arch_cfg: ModelConfig, shape_name: str, mesh: Mesh):
 
 def argument_bytes(cell: Cell, args, mesh: Mesh) -> int:
     """Bytes of the arguments a device holds: each leaf's local shard under
-    its physical spec on ``mesh`` (a dim split by the product of its mesh
-    axes, which ``sanitize_spec`` made divide it), summed."""
-    def local(t, spec):
-        n = t.element_size()
-        for i, dim in enumerate(t.shape):
-            entry = spec[i] if i < len(spec) else None
-            ways = 1
-            for a in (() if entry is None else (entry,) if isinstance(entry, str) else entry):
-                ways *= mesh.shape[a]
-            n *= dim // ways
-        return n
-    return sum(local(t, sp) for a, specs in zip(args, cell.specs)
+    its physical spec on ``mesh`` (``sharding.local_shape``), summed."""
+    return sum(math.prod(shlib.local_shape(t.shape, sp, mesh)) * t.element_size()
+               for a, specs in zip(args, cell.specs)
                for t, sp in zip(registry.leaves(a), _spec_leaves(specs)))
 
 

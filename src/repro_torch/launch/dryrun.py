@@ -14,22 +14,28 @@ JAX's keys):
 * ``lower_s``: the seconds of the meta run; ``compile_s`` 0 (nothing compiles);
 * ``memory.argument_bytes``: per device and exact, each argument leaf's local
   shard under its spec on the mesh;
-* ``per_device.flops`` / ``bytes``: the counted totals of the whole cell over
-  the chip count (``"split": "ideal"``), and so ``memory.temp_bytes`` /
-  ``output_bytes``; ``memory.peak_bytes`` is the device's arguments plus that
-  temp; the whole cell's counts are under ``counted``;
-* ``per_device.collective_bytes``, ``collectives`` and
-  ``roofline_s.collective``: null, with ``collective_reason``: the port runs
-  no model under a multi-device mesh (ROADMAP.md);
-* ``roofline_s``: compute (FLOPs over ``hopper.PEAK_FLOPS``) and memory
-  (bytes over ``hopper.HBM_BW``), and ``bottleneck`` the larger.
+* ``per_device.flops`` / ``bytes`` / ``collective_bytes`` and
+  ``memory.temp_bytes`` / ``output_bytes``: one rank's counts
+  (``"split": "rank"``); ``memory.peak_bytes`` is the device's arguments
+  plus that temp; the same counts are under ``counted``;
+* ``collectives``: the rank's collectives by kind, each a ``count`` and
+  ``bytes`` (``hlo_analysis``' table);
+* ``roofline_s``: compute (FLOPs over ``hopper.PEAK_FLOPS``), memory (bytes
+  over ``hopper.HBM_BW``) and collective (collective bytes over
+  ``hopper.LINK_BW``), and ``bottleneck`` the largest.
 
-The meshes: ``1x1`` (one H100: per device is exact), ``16x16`` and
-``2x16x16`` (descriptions; nothing runs on them).  A train cell's
-microbatches after the third are equal iterations of ``train_step``'s loop
-(the same ops on the same shapes, the same live set), so the cell is counted
-at 2 and at 3 microbatches of the cell's size and extrapolated, exactly: the
-trip count ``hlo_analysis`` applies to JAX's microbatch scan.
+The meshes: ``1x1`` (one H100), ``16x16`` and ``2x16x16``.  On a mesh of
+more than one device the cell runs as one rank (rank 0) of a fake process
+group of ``mesh.size`` ranks, which moves no data: its arguments are
+DTensors whose local shards are meta tensors of the rank's shapes, placed
+by their specs on a ``DeviceMesh`` (``sharding.fake_group`` keeps the
+all-to-alls a card's mesh issues), and ``op_analysis`` counts the rank's
+local ops and its collectives.  A cell that cannot run so fails; none falls back to the whole
+cell over the chip count.  A train cell's microbatches after the third are
+equal iterations of ``train_step``'s loop (the same ops on the same shapes,
+the same live set), so the cell is counted at 2 and at 3 microbatches of
+the cell's size and extrapolated, exactly: the trip count ``hlo_analysis``
+applies to JAX's microbatch scan.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-4b --shape train_4k
@@ -56,8 +62,6 @@ ARTIFACTS = str(Path(__file__).resolve().parents[3] / "artifacts" / "dryrun_torc
 MESHES = {"1x1": (("data", "model"), (1, 1)),
           "16x16": (("data", "model"), (16, 16)),
           "2x16x16": (("pod", "data", "model"), (2, 16, 16))}
-COLLECTIVE_REASON = ("the port runs no model under a multi-device mesh (ROADMAP.md), "
-                     "so a cell has no collective to count")
 CELL_TIMEOUT_S = 3600
 
 
@@ -73,15 +77,16 @@ def make_mesh(name: str):
 
 def count_cell(cfg, shape_name: str, mesh, *, fsdp: bool = True,
                n_microbatches: Optional[int] = None, sites: bool = False,
-               exact: bool = False):
+               exact: bool = False, dmesh=None):
     """Build the cell and count it -> (cell, args, analysis): ``analysis`` is
-    ``op_analysis.analyze``'s dict for the whole cell (a train cell of more
-    than 3 microbatches extrapolated from 2 and 3 of them unless ``exact``)."""
+    ``op_analysis.analyze``'s dict for the whole cell, or for one rank with
+    ``dmesh`` (a train cell of more than 3 microbatches extrapolated from 2
+    and 3 of them unless ``exact``)."""
     from repro_torch.configs.base import SHAPES
     from repro_torch.launch import cells as cell_lib
     from repro_torch.launch.op_analysis import analyze, storage_bytes
     cell, args, _ = cell_lib._build_cell(cfg, shape_name, mesh, fsdp=fsdp,
-                                         n_microbatches=n_microbatches)
+                                         n_microbatches=n_microbatches, dmesh=dmesh)
     n = cell.n_microbatches
     if cell.kind != "train" or n <= 3 or exact:
         return cell, args, analyze(cell, *args, sites=sites)
@@ -89,7 +94,7 @@ def count_cell(cfg, shape_name: str, mesh, *, fsdp: bool = True,
     part = {}
     for k in (2, 3):
         c, a, _ = cell_lib._build_cell(cfg, shape_name, mesh, fsdp=fsdp, n_microbatches=k,
-                                       batch_rows=k * rows)
+                                       batch_rows=k * rows, dmesh=dmesh)
         part[k] = analyze(c, *a, sites=sites)
         del a
     two, three = part[2], part[3]
@@ -98,6 +103,8 @@ def count_cell(cfg, shape_name: str, mesh, *, fsdp: bool = True,
     full_args = storage_bytes(args)
     out = dict(three, flops_per_device=counts.flops, bytes_per_device=counts.bytes,
                matmul_flops=counts.matmul_flops, ops=counts.ops, counts=counts,
+               collective_bytes_per_device=counts.collective_bytes,
+               collectives={k: dict(v) for k, v in counts.collectives.items()},
                argument_bytes=full_args,
                peak_bytes=three["peak_bytes"] - three["argument_bytes"] + full_args)
     out["microbatches_counted"] = [2, 3]
@@ -120,23 +127,25 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, save_ops: bool
     m = make_mesh(name)
     n_chips = m.size
     t0 = time.time()
-    cell, args, r = count_cell(cfg, shape_name, m, sites=save_ops)
+    cell, args, r = count_rank(cfg, shape_name, m, sites=save_ops)
     lower_s = time.time() - t0
     arg_dev = cell_lib.argument_bytes(cell, args, m)
-    flops_dev = r["flops_per_device"] / n_chips
-    bytes_dev = r["bytes_per_device"] / n_chips
-    temp_dev = r["temp_bytes"] / n_chips
+    flops_dev = r["flops_per_device"]
+    bytes_dev = r["bytes_per_device"]
+    temp_dev = r["temp_bytes"]
+    coll_dev = r["collective_bytes_per_device"]
     result = {
         "arch": arch, "shape": shape_name, "mesh": name, "n_chips": n_chips,
         "lower_s": round(lower_s, 1), "compile_s": 0.0,
-        "memory": {"argument_bytes": arg_dev, "output_bytes": r["output_bytes"] / n_chips,
+        "memory": {"argument_bytes": arg_dev, "output_bytes": r["output_bytes"],
                    "temp_bytes": temp_dev, "peak_bytes": arg_dev + temp_dev},
         "xla_cost_analysis": None,
-        "per_device": {"flops": flops_dev, "bytes": bytes_dev, "collective_bytes": None,
-                       "split": "ideal"},
-        "collectives": None, "collective_reason": COLLECTIVE_REASON,
+        "per_device": {"flops": flops_dev, "bytes": bytes_dev, "collective_bytes": coll_dev,
+                       "split": "rank"},
+        "collectives": r["collectives"],
         "roofline_s": {"compute": flops_dev / hopper.PEAK_FLOPS,
-                       "memory": bytes_dev / hopper.HBM_BW, "collective": None},
+                       "memory": bytes_dev / hopper.HBM_BW,
+                       "collective": coll_dev / hopper.LINK_BW},
         "counted": {"flops": r["flops_per_device"], "matmul_flops": r["matmul_flops"],
                     "bytes": r["bytes_per_device"], "ops": r["ops"],
                     "argument_bytes": r["argument_bytes"], "output_bytes": r["output_bytes"],
@@ -147,7 +156,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, save_ops: bool
         "constants": {"peak_flops": hopper.PEAK_FLOPS, "hbm_bw": hopper.HBM_BW,
                       "link_bw": hopper.LINK_BW, "card": hopper.CARD},
     }
-    terms = {k: v for k, v in result["roofline_s"].items() if v is not None}
+    terms = result["roofline_s"]
     result["bottleneck"] = max(terms, key=terms.get)
     if save_ops:
         result["ops_path"] = _artifact_path(arch, shape_name, name, ext=".ops.json")
@@ -155,6 +164,37 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, save_ops: bool
             json.dump({k: breakdown(r["counts"], top=40, key=k) for k in ("bytes", "flops")},
                       f, indent=1)
     return result
+
+
+def count_rank(cfg, shape_name: str, mesh, **kw):
+    """:func:`count_cell` for one device of ``mesh``: the cell itself on one
+    device, else rank 0 of a fake process group of ``mesh.size`` ranks
+    (module docstring).  The arguments come back as
+    global meta tensors."""
+    if mesh.size == 1:
+        return count_cell(cfg, shape_name, mesh, **kw)
+    import torch
+
+    from repro_torch.distributed import sharding as shlib
+    with shlib.fake_group(mesh.size):
+        # a card's DeviceMesh where there is one; else a CPU one, on which
+        # fake_group keeps the all-to-alls the card issues
+        dmesh = shlib.dtensor_mesh(mesh, "cuda" if torch.cuda.is_available() else "cpu")
+        cell, args, r = count_cell(cfg, shape_name, mesh, dmesh=dmesh, **kw)
+        return cell, _meta_stand_ins(args), r
+
+
+def _meta_stand_ins(tree):
+    """The global meta tensors of a tree of DTensors (what
+    ``cells.argument_bytes`` reads: shapes and dtypes)."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+    if isinstance(tree, dict):
+        return {k: _meta_stand_ins(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_meta_stand_ins(v) for v in tree)
+    return tree
 
 
 def _artifact_path(arch, shape, mesh: str, ext=".json"):

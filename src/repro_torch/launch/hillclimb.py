@@ -4,8 +4,9 @@ roofline terms; the counterpart of ``repro.launch.hillclimb``.
   PYTHONPATH=src python -m repro_torch.launch.hillclimb --arch granite-34b \
       --shape decode_32k --variant unroll
 
-The cell runs on the meta device on the 16x16 mesh (``launch.dryrun``); the
-terms are against the H100's constants (``launch.hopper``).  Variants that
+The cell runs on the meta device as one rank of the 16x16 mesh
+(``launch.dryrun.count_rank``); the terms, the collective one included, are
+against the H100's constants (``launch.hopper``).  Variants that
 change nothing in the eager port give the baseline's numbers: ``unroll``
 (``scan_layers`` only groups ``stack.compute_runs``' runs; the layers run
 one by one either way) and ``qblock1k`` (reserved in the JAX package too).
@@ -46,7 +47,7 @@ def run(arch: str, shape: str, variant: str) -> dict:
     from repro_torch.distributed import sharding as shlib
     from repro_torch.launch import cells as cell_lib
     from repro_torch.launch import dryrun
-    from repro_torch.launch.hopper import HBM_BW, PEAK_FLOPS
+    from repro_torch.launch.hopper import HBM_BW, LINK_BW, PEAK_FLOPS
 
     spec = dict(VARIANTS[variant])
     kv_seq = spec.pop("kv_seq", None)
@@ -60,24 +61,23 @@ def run(arch: str, shape: str, variant: str) -> dict:
         shlib.LOGICAL_RULES["kv_seq"] = kv_seq
     try:
         t0 = time.time()
-        cell, args, r = dryrun.count_cell(cfg, shape, m, fsdp=spec.get("fsdp", True),
+        cell, args, r = dryrun.count_rank(cfg, shape, m, fsdp=spec.get("fsdp", True),
                                           n_microbatches=spec.get("n_microbatches"))
         count_s = time.time() - t0
         arg_bytes = cell_lib.argument_bytes(cell, args, m)
     finally:
         shlib.LOGICAL_RULES["kv_seq"] = prev
-    n = m.size
     out = {
         "arch": arch, "shape": shape, "variant": variant,
         "compile_s": round(count_s, 1),
-        "compute_ms": r["flops_per_device"] / n / PEAK_FLOPS * 1e3,
-        "memory_ms": r["bytes_per_device"] / n / HBM_BW * 1e3,
-        "collective_ms": None,
-        "temp_gib": r["temp_bytes"] / n / 2**30,
+        "compute_ms": r["flops_per_device"] / PEAK_FLOPS * 1e3,
+        "memory_ms": r["bytes_per_device"] / HBM_BW * 1e3,
+        "collective_ms": r["collective_bytes_per_device"] / LINK_BW * 1e3,
+        "temp_gib": r["temp_bytes"] / 2**30,
         "arg_gib": arg_bytes / 2**30,
-        "collectives": None,
+        "collectives": r["collectives"],
     }
-    out["step_ms_bound"] = max(out["compute_ms"], out["memory_ms"])
+    out["step_ms_bound"] = max(out["compute_ms"], out["memory_ms"], out["collective_ms"])
     return out
 
 

@@ -37,8 +37,24 @@ Conventions (``hlo_analysis``' rules, as they translate to eager ops):
   on the storage), so :attr:`OpCounter.peak_bytes` is the eager program's
   peak above what was live before it ran.  XLA's temp is smaller than this
   for the same program, because XLA fuses elementwise chains.
-* **collectives**: none.  The port runs no model under a multi-device mesh,
-  so there is no collective to count.
+* **one rank on a mesh**: a cell on a mesh larger than one device runs on
+  DTensors (``launch.cells``) under a process group of ``mesh.size`` ranks
+  (the fake group, which moves no data, for counting).  A dispatch mode
+  entered above a DTensor program sees each op at the DTensors' global
+  shapes, so the counter steps aside for an op on DTensors
+  (``NotImplemented``): DTensor's own dispatch then runs the op's sharding
+  propagation and calls the local op on the rank's shards, and that local
+  op dispatches under this mode with the rank's shapes, where it is counted.
+  The ops DTensor's propagation runs on fake tensors to learn output shapes
+  are not the program's and are not counted.
+* **collectives**: the functional collectives (``_c10d_functional``, and
+  ``_dtensor.shard_dim_alltoall``) that DTensor's redistributions issue are
+  seen as ops on the rank's tensors and counted under ``hlo_analysis``'
+  names and rule: ``all-reduce``,
+  ``all-gather``, ``reduce-scatter`` and ``all-to-all``, each with a
+  ``count`` and ``bytes``; the bytes are the input's for reduce-scatter and
+  all-to-all and the larger of input and output otherwise, and they also
+  add input plus output to ``bytes``.  ``wait_tensor`` is free.
 
 The hand-written kernels are not aten ops: a kernel wrapper launches
 through ``ctypes``, out of this mode's sight, and raises on a meta tensor.
@@ -58,6 +74,8 @@ from typing import Callable
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
+
+from repro_torch.distributed.sharding import is_dtensor
 
 aten = torch.ops.aten
 
@@ -109,6 +127,15 @@ _QUERIES = {aten.sym_is_contiguous.default, aten.is_contiguous.default,
             aten.numel.default, aten.sym_numel.default, aten.dim.default,
             torch.ops.prim.layout.default}
 _PKG = "/repro_torch/"
+#: functional collectives -> hlo_analysis' name
+COLLECTIVES = {"all_reduce": "all-reduce", "all_gather_into_tensor": "all-gather",
+               "reduce_scatter_tensor": "reduce-scatter",
+               "all_to_all_single": "all-to-all", "all_reduce_coalesced": "all-reduce",
+               "all_gather_into_tensor_coalesced": "all-gather",
+               "reduce_scatter_tensor_coalesced": "reduce-scatter",
+               "broadcast": "all-reduce", "shard_dim_alltoall": "all-to-all"}
+_COLLECTIVE_NS = ("_c10d_functional", "_c10d_functional_autograd", "c10d_functional",
+                  "_dtensor")
 
 
 @dataclasses.dataclass
@@ -121,12 +148,20 @@ class Counts:
     bytes: float = 0.0
     ops: int = 0
     by_site: dict = dataclasses.field(default_factory=lambda: defaultdict(lambda: [0.0, 0.0, 0]))
+    collective_bytes: float = 0.0
+    collectives: dict = dataclasses.field(default_factory=dict)
 
     def combine(self, other: "Counts", mult: float = 1.0) -> "Counts":
         """``self + mult * other`` as a new ``Counts``."""
         out = Counts(self.flops + mult * other.flops,
                      self.matmul_flops + mult * other.matmul_flops,
-                     self.bytes + mult * other.bytes, int(self.ops + mult * other.ops))
+                     self.bytes + mult * other.bytes, int(self.ops + mult * other.ops),
+                     collective_bytes=self.collective_bytes + mult * other.collective_bytes)
+        for src, m in ((self, 1.0), (other, mult)):
+            for kind, v in src.collectives.items():
+                slot = out.collectives.setdefault(kind, {"count": 0, "bytes": 0.0})
+                slot["count"] = int(round(slot["count"] + m * v["count"]))
+                slot["bytes"] += m * v["bytes"]
         for src, m in ((self, 1.0), (other, mult)):
             for key, (f, b, n) in src.by_site.items():
                 slot = out.by_site[key]
@@ -141,10 +176,11 @@ def _nbytes(t: torch.Tensor) -> int:
 
 
 def _tensors(tree, into=None) -> list:
-    """The tensors of nested tuples, lists and dicts, in order."""
+    """The tensors of nested tuples, lists and dicts, in order (a DTensor's
+    local shard in its place)."""
     into = [] if into is None else into
     if isinstance(tree, torch.Tensor):
-        into.append(tree)
+        into.append(tree.to_local() if is_dtensor(tree) else tree)
     elif isinstance(tree, (tuple, list)):
         for x in tree:
             _tensors(x, into)
@@ -223,6 +259,10 @@ class OpCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if types and any(t is not torch.Tensor and t is not torch.nn.Parameter for t in types):
+            if any(issubclass(t, _dtensor_type()) for t in types):
+                return NotImplemented            # counted as DTensor's local op
+            return func(*args, **kwargs)         # propagation's fake tensors
         rule = _RULES.get(func)
         if rule is None:
             rule = _RULES[func] = _rule(func)
@@ -237,11 +277,38 @@ class OpCounter(TorchDispatchMode):
             if r is not NotImplemented:
                 return r
         out = func(*args, **kwargs)
-        self._count(func, rule[0], args, kwargs, out)
+        if rule[0] == "collective":
+            self._collective(func, args, kwargs, out)
+        else:
+            self._count(func, rule[0], args, kwargs, out)
         return out
+
+    def _collective(self, func, args, kwargs, out) -> None:
+        outs = _tensors(out)
+        if outs and _is_fake(outs[0]):
+            return
+        for t in outs:
+            self._track(t)
+        name = COLLECTIVES[func.overloadpacket.__name__]
+        nin = sum(_nbytes(t) for t in _tensors(kwargs, _tensors(args)))
+        nout = sum(_nbytes(t) for t in outs)
+        cb = nin if name in ("reduce-scatter", "all-to-all") else max(nin, nout)
+        c = self.counts
+        slot = c.collectives.setdefault(name, {"count": 0, "bytes": 0.0})
+        slot["count"] += 1
+        slot["bytes"] += cb
+        c.collective_bytes += cb
+        c.bytes += nin + nout
+        c.ops += 1
+        if self.sites:
+            key = f"{name}:{_site()}"
+            c.by_site[key][1] += nin + nout
+            c.by_site[key][2] += 1
 
     def _count(self, func, kind, args, kwargs, out) -> None:
         outs = _tensors(out)
+        if outs and _is_fake(outs[0]):
+            return
         ins = _tensors(kwargs, _tensors(args))
         dev = self.device_type
         if not any(t.device.type == dev for t in outs) \
@@ -296,15 +363,27 @@ _QUERY, _VIEW = "query", "view"
 _RULES: dict = {}
 
 
+def _dtensor_type():
+    from torch.distributed.tensor import DTensor
+    return DTensor
+
+
+def _is_fake(t) -> bool:
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(t, FakeTensor)
+
+
 def _rule(func):
     """How an op is counted: ``_QUERY`` (passed through, as
     ``FlopCounterMode`` does), ``_VIEW``, or (kind, may decompose) with kind
-    one of "free", "matmul", "move", "reduce", "elementwise"."""
+    one of "free", "matmul", "move", "reduce", "elementwise", "collective"."""
     if func in _QUERIES:
         return _QUERY
     if isinstance(func, torch._ops.OpOverload) and func.is_view:
         return _VIEW
     packet = func.overloadpacket
+    if getattr(func, "namespace", None) in _COLLECTIVE_NS:
+        return ("collective" if packet.__name__ in COLLECTIVES else "free"), False
     kind = ("free" if packet in FREE else "matmul" if packet in flop_registry
             else "move" if packet in MOVES else "reduce" if packet in REDUCTIONS
             else "elementwise")
@@ -334,8 +413,8 @@ def breakdown(counts: Counts, top: int = 20, key: str = "bytes") -> list[tuple[f
 
 def analyze(fn: Callable, *args, sites: bool = False, held=None) -> dict:
     """Run ``fn(*args)`` under an :class:`OpCounter` -> the keys of
-    ``hlo_analysis.analyze_hlo_text`` (``collective_bytes_per_device`` 0
-    and ``collectives`` empty: the port runs no collective), plus
+    ``hlo_analysis.analyze_hlo_text`` (one rank's, on DTensor arguments),
+    plus
     ``peak_bytes`` (the live bytes' peak, ``args`` included),
     ``temp_bytes`` (the peak less the arguments), ``argument_bytes``,
     ``output_bytes`` (the storages of the result that are not arguments'),
@@ -358,7 +437,8 @@ def analyze(fn: Callable, *args, sites: bool = False, held=None) -> dict:
     del out
     c = counter.counts
     return {"flops_per_device": c.flops, "bytes_per_device": c.bytes,
-            "collective_bytes_per_device": 0.0, "collectives": {},
+            "collective_bytes_per_device": c.collective_bytes,
+            "collectives": {k: dict(v) for k, v in c.collectives.items()},
             "matmul_flops": c.matmul_flops, "ops": c.ops,
             "argument_bytes": arg_bytes, "output_bytes": out_bytes,
             "peak_bytes": counter.peak_bytes, "temp_bytes": counter.peak_bytes - arg_bytes,

@@ -20,7 +20,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.distributed.sharding import div_axis
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.sharding import div_axis, shard
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
@@ -59,22 +60,33 @@ def specs(cfg: ModelConfig) -> dict:
     return s
 
 
-def _proj(x, w, cd):
-    # "bsd,dhk->bshk" as one (B*S, d) x (d, H*D) product
+def _proj(x, w, cd, heads: str = "heads"):
+    # "bsd,dhk->bshk" as one (B*S, d) x (d, H*D) product.  On DTensors the
+    # weight's (d, H*D) view and the product are held to the (logical) heads
+    # axis: DTensor may shard their columns over "model" where the heads do
+    # not divide, and then cannot split them into heads (forward) or fold
+    # the weight's gradient back into (d, H, D) (backward).
     d_in, nh, hd = w.shape
-    return (x @ w.to(cd).reshape(d_in, nh * hd)).unflatten(-1, (nh, hd))
+    ax = div_axis(heads, nh)
+    y = x @ shard(w.to(cd).reshape(d_in, nh * hd), None, ax)
+    return shard(y, "batch", None, ax).unflatten(-1, (nh, hd))
 
 
 def _project_qkv(cfg: ModelConfig, p, x, positions):
     cd = cfg.cdtype
     q = _proj(x, p["wq"], cd)
-    k = _proj(x, p["wk"], cd)
-    v = _proj(x, p["wv"], cd)
+    k = _proj(x, p["wk"], cd, "kv_heads")
+    v = _proj(x, p["wv"], cd, "kv_heads")
     if cfg.qk_norm:   # before RoPE, as in the JAX package
         q = layers.rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = layers.rmsnorm(k, p["k_norm"], cfg.norm_eps)
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
+    qh = div_axis("heads", cfg.num_heads)
+    kh = div_axis("kv_heads", cfg.num_kv_heads)
+    q = shard(q, "batch", None, qh, None)
+    k = shard(k, "batch", None, kh, None)
+    v = shard(v, "batch", None, kh, None)
     return q, k, v
 
 
@@ -91,8 +103,11 @@ def _attn_core(cfg: ModelConfig, q, k, v, *, causal: bool, window, q_offset: int
 
 
 def _out_proj(cfg: ModelConfig, p, out):
+    qh = div_axis("heads", cfg.num_heads)
+    out = shard(out, "batch", None, qh, None)
     wo = p["wo"].to(cfg.cdtype)
-    return out.flatten(-2) @ wo.reshape(-1, wo.shape[-1])            # "bshk,hkd->bsd"
+    wo = shard(wo.reshape(-1, wo.shape[-1]), qh, None)          # as in ``_proj``
+    return out.flatten(-2) @ wo                                  # "bshk,hkd->bsd"
 
 
 def apply(cfg: ModelConfig, p, x, *, window: Optional[int], positions=None,
@@ -119,13 +134,13 @@ def prefill(cfg: ModelConfig, p, cache: dict, x, *, window: Optional[int]):
     t = cache["k"].shape[1]
     if window is None:
         n = min(s, t)
-        cache["k"][:, :n] = k[:, :n]
-        cache["v"][:, :n] = v[:, :n]
+        sh.write_seq(cache["k"], k[:, :n], slice(0, n))
+        sh.write_seq(cache["v"], v[:, :n], slice(0, n))
     else:
         w = min(t, s)
         slots = torch.arange(s - w, s, device=x.device) % t
-        cache["k"][:, slots] = k[:, s - w:]
-        cache["v"][:, slots] = v[:, s - w:]
+        sh.write_seq(cache["k"], k[:, s - w:], slots)
+        sh.write_seq(cache["v"], v[:, s - w:], slots)
     return _out_proj(cfg, p, out), cache
 
 
@@ -147,28 +162,31 @@ def decode(cfg: ModelConfig, p, cache: dict, x, pos, *, window: Optional[int]):
     The new key/value are written into ``cache`` in place (the JAX package
     donates the cache buffer instead), and the same dict is returned.
     """
-    b = x.shape[0]
     q, k_new, v_new = _project_qkv(cfg, p, x, pos[:, None])
+    if div_axis("kv_heads", cfg.num_kv_heads) is None:
+        # split-K cache (``cache_specs``): every rank of "model" holds a slice
+        # of the keys, so each needs every query head
+        q = shard(q, "batch", None, None, None)
     k, v = cache["k"], cache["v"]
     t = k.shape[1]
     slot = pos.long() if window is None else (pos % t).long()
-    bidx = torch.arange(b, device=x.device)
-    k.index_put_((bidx, slot), k_new[:, 0])
-    v.index_put_((bidx, slot), v_new[:, 0])
+    sh.write_rows(k, slot, k_new[:, 0])
+    sh.write_rows(v, slot, v_new[:, 0])
 
     if window is None and cfg.attn_impl == "kernel":
         out = decode_attention(q, k, v, pos, softcap=cfg.attn_logit_softcap).to(cfg.cdtype)
     else:
-        key_idx = torch.arange(t, device=x.device)
-        if window is None:
-            # full cache: positions are 0..t-1; mask future
-            mask = key_idx[None, :] <= pos[:, None]
-        else:
-            # ring cache: slot s holds position p - ((p - s) mod W)
-            kpos = pos[:, None] - torch.remainder(pos[:, None] - key_idx[None, :], t)
-            mask = kpos >= 0
-        scores = layers._gqa_scores(q, k, cfg.attn_logit_softcap)   # (B,K,G,1,T)
-        scores = scores.masked_fill(~mask[:, None, None, None, :], NEG_INF)
-        probs = torch.softmax(scores, dim=-1)
-        out = layers._gqa_out(probs, v).to(cfg.cdtype)               # (B,1,H,D)
+        def core(q, k, v, pos):
+            key_idx = torch.arange(t, device=q.device)
+            if window is None:
+                # full cache: positions are 0..t-1; mask future
+                mask = key_idx[None, :] <= pos[:, None]
+            else:
+                # ring cache: slot s holds position p - ((p - s) mod W)
+                kpos = pos[:, None] - torch.remainder(pos[:, None] - key_idx[None, :], t)
+                mask = kpos >= 0
+            scores = layers._gqa_scores(q, k, cfg.attn_logit_softcap)   # (B,K,G,1,T)
+            scores = scores.masked_fill(~mask[:, None, None, None, :], NEG_INF)
+            return layers._gqa_out(layers.softmax(scores), v).to(cfg.cdtype)  # (B,1,H,D)
+        out = layers.by_heads(core, q, k, v, pos, rest_specs=[("batch",)])
     return _out_proj(cfg, p, out), cache

@@ -9,6 +9,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import gather_rows, shard
 from repro_torch.models import layers
 
 
@@ -28,18 +29,27 @@ def specs(cfg: ModelConfig) -> dict:
 
 
 def embed(cfg: ModelConfig, p, tokens: torch.Tensor) -> torch.Tensor:
-    x = p["embed"][tokens].to(cfg.cdtype)
+    x = gather_rows(p["embed"], tokens).to(cfg.cdtype)
     # the JAX package multiplies by a weakly typed scalar, i.e. sqrt(d_model)
     # rounded to the compute dtype first; round it the same way, on the host
     # (a scalar tensor sent to the device would cost a stream sync)
     scale = torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.cdtype).item()
-    return x * scale
+    return shard(x * scale, "batch", None, "embed")
 
 
 def logits(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     x = layers.rmsnorm(x, p["final_norm"], cfg.norm_eps)
+    out = layers.softcap(x @ _head_weight(cfg, p), cfg.final_logit_softcap)
+    return shard(out, "batch", None, "vocab")
+
+
+def _head_weight(cfg: ModelConfig, p) -> torch.Tensor:
+    """The (d, V) LM head in the compute dtype.  On a DTensor it is gathered
+    whole along d first (the FSDP gather of a training cell): left sharded
+    there, DTensor contracts over the data axis and reduce-scatters every
+    chunk of logits instead."""
     w = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
-    return layers.softcap(x @ w.to(cfg.cdtype), cfg.final_logit_softcap)
+    return shard(w.to(cfg.cdtype), None, "vocab")
 
 
 def loss_from_logits(lgts: torch.Tensor, batch: dict) -> torch.Tensor:
@@ -61,14 +71,15 @@ def chunked_loss(cfg: ModelConfig, p, x: torch.Tensor, batch: dict,
     if mask is None:
         mask = torch.ones(targets.shape, dtype=torch.float32, device=x.device)
     x = layers.rmsnorm(x, p["final_norm"], cfg.norm_eps)
-    w = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
+    w = _head_weight(cfg, p)
 
     cb = min(chunk, s)
     while s % cb:
         cb -= 1
 
     def body(xc, w, tc, mc):
-        lg = layers.softcap(xc @ w.to(cfg.cdtype), cfg.final_logit_softcap)
+        lg = layers.softcap(xc @ w, cfg.final_logit_softcap)
+        lg = shard(lg, "batch", None, "vocab")
         return (layers.nll(lg, tc) * mc).sum(), mc.sum()
 
     remat = layers.grad_needed(x, w)

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import local_map, shard
 from repro_torch.models import attention, head, layers, stack
 
 # tokens per block of selective_scan's precomputed decays and inputs (memory only)
@@ -138,13 +139,18 @@ def mamba_apply(cfg: ModelConfig, p, x, h0=None, conv_state=None):
     di, _, n, _ = _dims(cfg)
     cd = cfg.cdtype
     xin, z = torch.chunk(x @ p["in_proj"].to(cd), 2, dim=-1)
+    xin = shard(xin, "batch", None, "ffn")
     xc, conv_state = _conv1d(xin, p["conv_w"].to(cd), p["conv_b"].to(cd), conv_state)
     xc = F.silu(xc)
     dt, a, b_, c_ = _ssm_params(cfg, p, xc)
     if h0 is None:
         h0 = torch.zeros((x.shape[0], di, n), dtype=torch.float32, device=x.device)
-    y, h = selective_scan(dt, a, b_, c_, xc, p["D"].float(), h0)
-    y = y.to(cd) * F.silu(z)
+    # per batch row and channel: on DTensors the scan runs on the local shards
+    bsf, bfn, bsn = ("batch", None, "ffn"), ("batch", "ffn", None), ("batch", None, None)
+    y, h = local_map(selective_scan, [bsf, ("ffn", None), bsn, bsn, bsf, ("ffn",), bfn],
+                     [(bsf, tuple(dt.shape)), (bfn, tuple(h0.shape))],
+                     dt, a, b_, c_, xc, p["D"].float(), h0)
+    y = shard(y.to(cd) * F.silu(z), "batch", None, "ffn")
     return y @ p["out_proj"].to(cd), (h, conv_state)
 
 
@@ -186,9 +192,9 @@ def _fuse_and_ffn(cfg: ModelConfig, p, x, a, m):
     """x + the averaged normed branch outputs, then the SwiGLU FFN."""
     fused = 0.5 * (layers.rmsnorm(a, p["norm_attn"], cfg.norm_eps)
                    + layers.rmsnorm(m, p["norm_ssm"], cfg.norm_eps))
-    x = x + fused
+    x = shard(x + fused, "batch", None, "embed")
     h = layers.rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + layers.swiglu_apply(p["mlp"], h, cfg.cdtype)
+    return shard(x + layers.swiglu_apply(p["mlp"], h, cfg.cdtype), "batch", None, "embed")
 
 
 def layer_apply(cfg: ModelConfig, p, x, *, window, kind):

@@ -17,6 +17,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import (contiguous_stride, div_axis, is_dtensor,
+                                              local_map, local_under, shard)
+
 NEG_INF = -1e30
 
 
@@ -118,6 +121,50 @@ def sinusoidal_pos(seq: int, dim: int, device=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    """``torch.softmax`` over the last dim; on a DTensor, the max, the
+    exponentials and their sum, which keep a sharded last dim (a split-K
+    cache's keys) where it is: DTensor gathers the whole dim for a softmax."""
+    if not is_dtensor(x):
+        return torch.softmax(x, dim=-1)
+    e = torch.exp(x - x.detach().amax(-1, keepdim=True))
+    return e / e.sum(-1, keepdim=True)
+
+
+def _per_query_head(q, kv):
+    """``kv`` (B, T, K, D) with each kv head repeated over its G query heads,
+    where query heads are sharded over "model" and the K kv heads cannot be
+    (a DTensor cannot split a shard of H into (K, G)); else ``kv`` as it is."""
+    h, kheads = q.shape[2], kv.shape[2]
+    if (h == kheads or not is_dtensor(q) or div_axis("kv_heads", kheads) is not None
+            or not any(getattr(p, "dim", None) == 2 for p in q.placements)):
+        return kv
+    b, t, _, d = kv.shape
+    return kv[:, :, :, None].expand(b, t, kheads, h // kheads, d).reshape(b, t, h, d)
+
+
+def by_heads(fn, q, k, v, *rest, rest_specs=()):
+    """``fn(q, k, v, *rest)`` (q: (B, S, H, D); k, v: (B, T, K, D); -> (B, S,
+    H, Dv)), on DTensors run on the rank's own batch rows and heads: attention
+    is independent per batch row and kv head, and DTensor cannot fold a
+    sharded head axis into the batch of its products.  Where a mesh axis
+    shards the keys' T (a split-K decode cache), the softmax spans the ranks
+    and ``fn`` runs on the DTensors as they are."""
+    if not is_dtensor(q) or any(getattr(p, "dim", None) == 1
+                                for p in getattr(k, "placements", ())):
+        return fn(q, k, v, *rest)
+    k, v = _per_query_head(q, k), _per_query_head(q, v)
+    h = q.shape[2]
+    qh = div_axis("heads", h)
+    kh = qh if k.shape[2] == h else div_axis("kv_heads", k.shape[2])
+    if (qh is None) != (kh is None):      # every rank takes every head
+        qh = kh = None
+    qs, ks = ("batch", None, qh, None), ("batch", None, kh, None)
+    out = (q.shape[0], q.shape[1], h, v.shape[-1])
+    return local_map(lambda *a: (fn(*a),), [qs, ks, ks, *rest_specs], [(qs, out)],
+                     q, k, v, *rest)[0]
+
+
 def _gqa_scores(q, k, softcap_val, score_dtype=torch.float32):
     # q: (B, qb, H, D) ; k: (B, T, K, D) ; H = K*G.  Products in float32, as
     # the JAX einsum's preferred_element_type, held in score_dtype.
@@ -134,6 +181,11 @@ def _gqa_out(probs, v):
     # probs: (B, K, G, qb, T), v: (B, T, K, D) -> (B, qb, H, D) float32
     out = torch.einsum("bkgst,btkd->bskgd", probs.float(), v.float())
     b, s, kh, g, d = out.shape
+    if is_dtensor(out):
+        # held to the heads' own axis before they merge: DTensor may have
+        # split the product over a mesh axis that no input uses, unevenly
+        ax = div_axis("kv_heads", kh) or (div_axis("heads", kh) if g == 1 else None)
+        out = shard(out, "batch", None, ax, None, None)
     return out.reshape(b, s, kh * g, d)
 
 
@@ -152,6 +204,10 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     JAX package's ``@jax.checkpoint``), so a backward recomputes one block's
     scores at a time and never holds every block's.
     """
+    if is_dtensor(q):
+        return by_heads(lambda q, k, v: attention(
+            q, k, v, causal=causal, window=window, logit_softcap=logit_softcap,
+            q_block=q_block, q_offset=q_offset, score_dtype=score_dtype), q, k, v)
     b, s, h, d = q.shape
     t = k.shape[1]
     dv = v.shape[-1]
@@ -166,7 +222,7 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
         if window is not None:
             mask = mask & (key_idx > q_offset - window)
         scores = scores.masked_fill(~mask, NEG_INF)
-        return _gqa_out(torch.softmax(scores, dim=-1), v).to(out_dtype)
+        return _gqa_out(softmax(scores), v).to(out_dtype)
 
     qb = min(q_block, s)
     while s % qb:        # largest divisor of s <= q_block
@@ -220,7 +276,8 @@ def swiglu_specs():
 def swiglu_apply(p, x, cdtype):
     gate = x @ p["wi_gate"].to(cdtype)
     up = x @ p["wi_up"].to(cdtype)
-    return (F.silu(gate) * up) @ p["wo"].to(cdtype)
+    h = shard(F.silu(gate) * up, "batch", None, "ffn")
+    return h @ p["wo"].to(cdtype)
 
 
 # ---------------------------------------------------------------------------
@@ -230,12 +287,43 @@ def swiglu_apply(p, x, cdtype):
 
 def nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Per-position negative log-likelihood: the float32 logsumexp of (..., V)
-    logits minus the gold logit.  The gold logit is gathered; the JAX
-    package's one-hot reduction (kept there for a vocab-sharded axis) sums
-    the same value with zeros, so both give the same number."""
+    logits minus the gold logit.  The gold logit is gathered; on DTensor
+    logits it is the JAX package's one-hot sum (the same value summed with
+    zeros), reduced on each rank's vocabulary shard (``_sharded_nll``)."""
     logits = logits.float()
+    if is_dtensor(logits):
+        return _sharded_nll(logits, targets)
     gold = logits.gather(-1, targets.long()[..., None])[..., 0]
     return torch.logsumexp(logits, dim=-1) - gold
+
+
+def _sharded_nll(logits, targets):
+    """``nll`` of DTensor logits: each rank reduces its own rows and its
+    vocabulary shard, and the max, the summed exponentials and the gold
+    logit meet across the vocabulary's mesh axes as one scalar a position
+    (an all-reduce each).  DTensor's own ops would move whole logits between
+    shardings in the backward."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    dm, pl, last = logits.device_mesh, logits.placements, logits.dim() - 1
+    vocab = [p.is_shard() and p.dim == last for p in pl]
+    rows = [Replicate() if v else p for v, p in zip(vocab, pl)]
+    shape = torch.Size(logits.shape[:-1])
+
+    def whole(x, reduce=None):          # (..., ) per-position results over the mesh
+        src = [Partial(reduce) if v else p for v, p in zip(vocab, rows)] if reduce else rows
+        d = DTensor.from_local(x, dm, src, run_check=False, shape=shape,
+                               stride=contiguous_stride(shape))
+        return d.redistribute(dm, rows) if reduce else d
+
+    loc = logits.to_local()
+    _, off = compute_local_shape_and_global_offset(logits.shape, dm, pl)
+    ids = local_under(targets, dm, rows).long() - off[last]
+    hit = ids[..., None] == torch.arange(loc.shape[-1], device=loc.device)
+    top = whole(loc.detach().amax(-1), "max").to_local()
+    summed = whole(torch.exp(loc - top[..., None]).sum(-1), "sum")
+    gold = whole(torch.where(hit, loc, 0.0).sum(-1), "sum")
+    return torch.log(summed) + whole(top) - gold
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,

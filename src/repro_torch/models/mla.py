@@ -17,7 +17,8 @@ import math
 
 import torch
 
-from repro_torch.distributed.sharding import div_axis
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.sharding import div_axis, shard
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, layers
 from repro_torch.models.layers import NEG_INF
@@ -82,6 +83,10 @@ def _expanded_attention(cfg: ModelConfig, p, x, positions, ckv, k_rope):
     v = torch.einsum("bsr,rhk->bshk", ckv, p["wuv"].to(cd))
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], dim=-1)
+    qh = div_axis("heads", cfg.num_heads)
+    q = shard(q, "batch", None, qh, None)
+    k = shard(k, "batch", None, qh, None)
+    v = shard(v, "batch", None, qh, None)
     out = layers.attention(q, k, v, causal=True, window=None, q_block=min(512, s))
     return attention._out_proj(cfg, p, out)
 
@@ -102,8 +107,8 @@ def prefill(cfg: ModelConfig, p, cache: dict, x):
     ckv, k_rope = _latent(cfg, p, x, positions)
     out = _expanded_attention(cfg, p, x, positions, ckv, k_rope)
     n = min(s, cache["ckv"].shape[1])
-    cache["ckv"][:, :n] = ckv[:, :n]
-    cache["krope"][:, :n] = k_rope[:, :n, 0]
+    sh.write_seq(cache["ckv"], ckv[:, :n], slice(0, n))
+    sh.write_seq(cache["krope"], k_rope[:, :n, 0], slice(0, n))
     return out, cache
 
 
@@ -125,16 +130,18 @@ def decode(cfg: ModelConfig, p, cache: dict, x, pos):
     """
     h, r, dn, dr, dv = _dims(cfg)
     cd = cfg.cdtype
-    b = x.shape[0]
     ckv_new, krope_new = _latent(cfg, p, x, pos[:, None])
-    bidx = torch.arange(b, device=x.device)
     ckv, krope = cache["ckv"], cache["krope"]
-    ckv.index_put_((bidx, pos.long()), ckv_new[:, 0])
-    krope.index_put_((bidx, pos.long()), krope_new[:, 0, 0])
+    sh.write_rows(ckv, pos, ckv_new[:, 0])
+    sh.write_rows(krope, pos, krope_new[:, 0, 0])
 
     q_nope, q_rope = _queries(cfg, p, x, pos[:, None])
     # absorb W_uk: q_nope . k_nope = (q_nope @ W_uk^T) . ckv
     q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["wuk"].to(cd))
+    # the latent cache is split-K (``cache_specs``): every query head on every
+    # rank of "model"
+    q_lat = shard(q_lat, "batch", None, None, None)
+    q_rope = shard(q_rope, "batch", None, None, None)
     # float32 scores, as the JAX einsums' preferred_element_type
     scores = torch.einsum("bshr,btr->bhst", q_lat.float(), ckv.float())
     scores = scores + torch.einsum("bshk,btk->bhst", q_rope.float(), krope.float())
@@ -143,7 +150,7 @@ def decode(cfg: ModelConfig, p, cache: dict, x, pos):
     t = ckv.shape[1]
     mask = torch.arange(t, device=x.device)[None, :] <= pos[:, None]   # (B, T)
     scores = scores.masked_fill(~mask[:, None, None, :], NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
+    probs = layers.softmax(scores)
     ctx = torch.einsum("bhst,btr->bshr", probs, ckv.float())
     out = torch.einsum("bshr,rhk->bshk", ctx.to(cd), p["wuv"].to(cd))
     return attention._out_proj(cfg, p, out), cache

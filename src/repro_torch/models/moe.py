@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import local_map, shard
 from repro_torch.kernels.moe_gemm import moe_expert_ffn
 from repro_torch.models import attention, head, layers, mla, stack
 
@@ -84,9 +85,20 @@ def _capacity(cfg: ModelConfig, g: int) -> int:
 
 
 def _expert_ffn(cfg: ModelConfig, p, xe):
-    """xe: (n, E, C, d) -> (n, E, C, d)."""
+    """xe: (n, E, C, d) -> (n, E, C, d).  On DTensors each rank runs its own
+    experts on its own groups (``local_map``; JAX's ``h`` constraint at
+    ``("expert_batch", "experts", None, "expert_ffn")`` is their specs): the
+    FFN is independent per group and expert, and DTensor's einsums over
+    the sharded expert axis take views its local shards cannot give."""
     cd = cfg.cdtype
     wg, wu, wo = (p[k].to(cd) for k in ("wi_gate", "wi_up", "wo"))
+    xs, ws = ("expert_batch", "experts", None, None), ("experts", None, "expert_ffn")
+    return local_map(lambda *a: (_expert_ffn_local(cfg, *a),),
+                     [xs, ws, ws, ("experts", "expert_ffn", None)],
+                     [(xs, tuple(xe.shape))], xe, wg, wu, wo)[0]
+
+
+def _expert_ffn_local(cfg: ModelConfig, xe, wg, wu, wo):
     if cfg.attn_impl == "kernel":
         # one kernel call per dispatch group
         return torch.stack([moe_expert_ffn(xg.contiguous(), wg, wu, wo) for xg in xe])
@@ -108,7 +120,9 @@ def _moe_dispatch(cfg: ModelConfig, p, xg, probs, ids):
     disp = keep[..., None] * F.one_hot(pos.long().clamp(max=c - 1), c).float()
     gates = (onehot * probs[..., None]).sum(2)                         # (n,G,E)
     combine = disp * gates[..., None]                                  # (n,G,E,C)
-    xe = torch.einsum("ngec,ngd->necd", disp.to(cfg.cdtype), xg)       # (n,E,C,d)
+    disp = shard(disp.to(cfg.cdtype), "expert_batch", None, "experts", None)
+    xe = torch.einsum("ngec,ngd->necd", disp, xg)                      # (n,E,C,d)
+    xe = shard(xe, "expert_batch", "experts", None, None)
     ye = _expert_ffn(cfg, p, xe)
     return torch.einsum("ngec,necd->ngd", combine.to(cfg.cdtype), ye)
 
@@ -142,7 +156,7 @@ def _moe_ragged(cfg: ModelConfig, p, xg, probs, ids):
     nidx = torch.arange(n, device=dev)[:, None].expand(n, g * k)
     xe = xg.new_zeros((n, e, c + 1, d))
     xe[nidx, eid_s, slot] = xg[nidx, tok_s]
-    ye = _expert_ffn(cfg, p, xe[:, :, :c])                             # (n,E,C,d)
+    ye = _expert_ffn(cfg, p, shard(xe[:, :, :c], "expert_batch", "experts", None, None))
     back = ye[nidx, eid_s, slot.clamp(max=c - 1)]                      # (n,GK,d)
     back = back * (pw_s * keep)[..., None].to(back.dtype)
     out = torch.zeros_like(xg)
@@ -157,13 +171,13 @@ def moe_ffn(cfg: ModelConfig, p, x):
     g = min(MOE_GROUP, tokens)
     while tokens % g != 0:
         g -= 1
-    xg = x.reshape(tokens // g, g, d)
+    xg = shard(x.reshape(tokens // g, g, d), "expert_batch", None, "embed")
     probs, ids, aux = _route(cfg, p, xg)
     impl = _moe_ragged if cfg.moe_impl == "ragged" else _moe_dispatch
     out = impl(cfg, p, xg, probs, ids).reshape(b, s, d)
     if cfg.num_shared_experts:
         out = out + layers.swiglu_apply(p["shared"], x, cfg.cdtype)
-    return out, aux
+    return shard(out, "batch", None, "embed"), aux
 
 
 # ---------------------------------------------------------------------------
@@ -212,8 +226,9 @@ def layer_apply(cfg: ModelConfig, p, x, *, window, kind):
         x = x + mla.apply(cfg, p["attn"], h)
     else:
         x = x + attention.apply(cfg, p["attn"], h, window=window)
+    x = shard(x, "batch", None, "embed")
     f, aux = _ffn(cfg, p, layers.rmsnorm(x, p["ln2"], cfg.norm_eps), kind)
-    return x + f, aux
+    return shard(x + f, "batch", None, "embed"), aux
 
 
 def layer_prefill(cfg: ModelConfig, p, cache, x, *, window, kind):
@@ -222,9 +237,9 @@ def layer_prefill(cfg: ModelConfig, p, cache, x, *, window, kind):
         a, cache = mla.prefill(cfg, p["attn"], cache, h)
     else:
         a, cache = attention.prefill(cfg, p["attn"], cache, h, window=window)
-    x = x + a
+    x = shard(x + a, "batch", None, "embed")         # as layer_apply
     f, _ = _ffn(cfg, p, layers.rmsnorm(x, p["ln2"], cfg.norm_eps), kind)
-    return x + f, cache
+    return shard(x + f, "batch", None, "embed"), cache
 
 
 def layer_decode(cfg: ModelConfig, p, cache, x, pos, *, window, kind):
@@ -233,9 +248,9 @@ def layer_decode(cfg: ModelConfig, p, cache, x, pos, *, window, kind):
         a, cache = mla.decode(cfg, p["attn"], cache, h, pos)
     else:
         a, cache = attention.decode(cfg, p["attn"], cache, h, pos, window=window)
-    x = x + a
+    x = shard(x + a, "batch", None, "embed")         # as transformer.layer_decode
     f, _ = _ffn(cfg, p, layers.rmsnorm(x, p["ln2"], cfg.norm_eps), kind)
-    return x + f, cache
+    return shard(x + f, "batch", None, "embed"), cache
 
 
 def init_params(cfg: ModelConfig, *, device: torch.device, seed: int = 0) -> dict:

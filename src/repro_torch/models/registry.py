@@ -74,6 +74,19 @@ def cache_specs(cfg: ModelConfig):
     return family_module(cfg).cache_specs(cfg)
 
 
+def batch_specs(cfg: ModelConfig, *, train: bool = False) -> dict:
+    """The logical spec of each input of a forward / prefill batch (and of a
+    training batch's targets and mask with ``train``)."""
+    s = {"tokens": ("batch", None)}
+    if train:
+        s["targets"] = s["loss_mask"] = ("batch", None)
+    if cfg.family == "vlm":
+        s["patch_embeds"] = ("batch", None, "embed")
+    if cfg.family == "encdec":
+        s["enc_embeds"] = ("batch", None, "embed")
+    return s
+
+
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos):
     return family_module(cfg).decode_step(cfg, params, cache, tokens, pos)
 

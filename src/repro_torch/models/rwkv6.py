@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import local_map, shard
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_ref
 from repro_torch.models import head, layers, stack
 
@@ -87,7 +88,9 @@ def _ddlerp(p, x, xprev):
     """Data-dependent token-shift mixing -> (x_w, x_k, x_v, x_r, x_g)."""
     sx = xprev - x
     xxx = x + sx * p["mu_x"].to(x.dtype)
-    t = torch.tanh(xxx @ p["w1"].to(x.dtype))
+    # replicated over "model" before the split into the five mixes (DTensor
+    # may shard a product with a replicated weight by its columns)
+    t = shard(torch.tanh(xxx @ p["w1"].to(x.dtype)), "batch", None, None)
     t = t.reshape(*t.shape[:-1], 5, LORA_MIX)
     m = torch.einsum("bsfr,frd->bsfd", t, p["w2"].to(x.dtype))
     mixed = x[..., None, :] + sx[..., None, :] * (p["mu"].to(x.dtype) + m)
@@ -108,6 +111,9 @@ def _rkvwg(cfg: ModelConfig, p, x, xprev):
 
 
 def _heads(x, h, dh):
+    # the time mix is replicated over "model" (``layer_specs``); held so on
+    # DTensors before the split into heads, as ``attention._proj``
+    x = shard(x, "batch", *([None] * (x.dim() - 1)))
     return x.reshape(*x.shape[:-1], h, dh)
 
 
@@ -136,8 +142,14 @@ def time_mix(cfg: ModelConfig, p, x, xprev, state):
     h, dh = _dims(cfg)
     r, k, v, g, logw = _rkvwg(cfg, p, x, xprev)
     scan = rwkv6_scan if cfg.attn_impl == "kernel" else rwkv6_scan_ref
-    y, state = scan(_heads(r, h, dh), _heads(k, h, dh), _heads(v, h, dh),
-                    _heads(logw, h, dh), p["u"].float(), state)
+    # per batch row (the heads are replicated): on DTensors the scan runs on
+    # the local shards
+    r = _heads(r, h, dh)
+    b = ("batch", None, None, None)
+    y, state = local_map(scan, [b, b, b, b, (None, None), b],
+                         [(b, tuple(r.shape)), (b, (r.shape[0], h, dh, dh))],
+                         r, _heads(k, h, dh), _heads(v, h, dh), _heads(logw, h, dh),
+                         p["u"].float(), state)
     y = _group_norm(y, p["gn_scale"], p["gn_bias"], cfg.norm_eps)
     y = y.to(cfg.cdtype) * g
     return y @ p["wo"].to(cfg.cdtype), state
@@ -147,7 +159,7 @@ def channel_mix(cfg: ModelConfig, p, x, xprev):
     cd = cfg.cdtype
     xk = x + (xprev - x) * p["mu_k"].to(x.dtype)
     xr = x + (xprev - x) * p["mu_r"].to(x.dtype)
-    kk = torch.square(F.relu(xk @ p["wk"].to(cd)))
+    kk = shard(torch.square(F.relu(xk @ p["wk"].to(cd))), "batch", None, "ffn")
     vv = kk @ p["wv"].to(cd)
     rr = torch.sigmoid(xr @ p["wr"].to(cd))
     return rr * vv
@@ -181,9 +193,9 @@ def layer_cache_specs(cfg: ModelConfig, kind):
 def layer_apply(cfg: ModelConfig, p, x, *, window, kind):
     xa = _ln(x, p["ln1"], cfg.norm_eps)
     y, _ = time_mix(cfg, p["tm"], xa, _tshift(xa), None)
-    x = x + y
+    x = shard(x + y, "batch", None, "embed")
     xb = _ln(x, p["ln2"], cfg.norm_eps)
-    return x + channel_mix(cfg, p["cm"], xb, _tshift(xb))
+    return shard(x + channel_mix(cfg, p["cm"], xb, _tshift(xb)), "batch", None, "embed")
 
 
 # -- decode ----------------------------------------------------------------------
@@ -206,10 +218,11 @@ def layer_decode(cfg: ModelConfig, p, cache, x, pos, *, window, kind):
                     p["tm"]["u"].float(), cache["S"])
     y = _group_norm(y[:, None], p["tm"]["gn_scale"], p["tm"]["gn_bias"], cfg.norm_eps)
     y = y.to(cfg.cdtype) * g
-    x = x + y @ p["tm"]["wo"].to(cfg.cdtype)
+    # the residual held to its spec, as transformer.layer_decode
+    x = shard(x + y @ p["tm"]["wo"].to(cfg.cdtype), "batch", None, "embed")
     xb = _ln(x, p["ln2"], cfg.norm_eps)
     cprev = cache["cshift"][:, None, :]
-    x = x + channel_mix(cfg, p["cm"], xb, cprev)
+    x = shard(x + channel_mix(cfg, p["cm"], xb, cprev), "batch", None, "embed")
     cache["S"].copy_(S)
     cache["tshift"].copy_(xa[:, 0])
     cache["cshift"].copy_(xb[:, 0])
@@ -221,9 +234,9 @@ def layer_prefill(cfg: ModelConfig, p, cache, x, *, window, kind):
     from zero, as in the JAX package); the cache is overwritten in place."""
     xa = _ln(x, p["ln1"], cfg.norm_eps)
     y, S = time_mix(cfg, p["tm"], xa, _tshift(xa), cache["S"])
-    x = x + y
+    x = shard(x + y, "batch", None, "embed")
     xb = _ln(x, p["ln2"], cfg.norm_eps)
-    x = x + channel_mix(cfg, p["cm"], xb, _tshift(xb))
+    x = shard(x + channel_mix(cfg, p["cm"], xb, _tshift(xb)), "batch", None, "embed")
     cache["S"].copy_(S)
     cache["tshift"].copy_(xa[:, -1])
     cache["cshift"].copy_(xb[:, -1])

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import attention, head, layers, stack
 
 
@@ -44,24 +45,28 @@ def layer_cache_specs(cfg: ModelConfig, kind):
 def layer_apply(cfg: ModelConfig, p, x, *, window, kind, positions=None):
     h = layers.rmsnorm(x, p["ln1"], cfg.norm_eps)
     x = x + attention.apply(cfg, p["attn"], h, window=window, positions=positions)
+    x = shard(x, "batch", None, "embed")
     h = layers.rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + layers.swiglu_apply(p["mlp"], h, cfg.cdtype)
+    return shard(x + layers.swiglu_apply(p["mlp"], h, cfg.cdtype), "batch", None, "embed")
 
 
 def layer_prefill(cfg: ModelConfig, p, cache, x, *, window, kind):
     h = layers.rmsnorm(x, p["ln1"], cfg.norm_eps)
     a, cache = attention.prefill(cfg, p["attn"], cache, h, window=window)
-    x = x + a
+    x = shard(x + a, "batch", None, "embed")
     h = layers.rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + layers.swiglu_apply(p["mlp"], h, cfg.cdtype), cache
+    return shard(x + layers.swiglu_apply(p["mlp"], h, cfg.cdtype), "batch", None, "embed"), cache
 
 
 def layer_decode(cfg: ModelConfig, p, cache, x, pos, *, window, kind):
     h = layers.rmsnorm(x, p["ln1"], cfg.norm_eps)
     a, cache = attention.decode(cfg, p["attn"], cache, h, pos, window=window)
-    x = x + a
+    # the residual held to its spec (the JAX package's decode leaves it to
+    # GSPMD): DTensor would keep the sums over "model" partial and gather the
+    # next layer's weights instead
+    x = shard(x + a, "batch", None, "embed")
     h = layers.rmsnorm(x, p["ln2"], cfg.norm_eps)
-    x = x + layers.swiglu_apply(p["mlp"], h, cfg.cdtype)
+    x = shard(x + layers.swiglu_apply(p["mlp"], h, cfg.cdtype), "batch", None, "embed")
     return x, cache
 
 

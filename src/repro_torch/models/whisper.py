@@ -21,7 +21,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import div_axis
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.sharding import div_axis, shard
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, head, layers, stack
 from repro_torch.models.layers import NEG_INF
@@ -57,7 +58,7 @@ def _mlp_specs() -> dict:
 
 def _mlp(p, x, cd):
     # jax.nn.gelu's default is the tanh approximation
-    h = F.gelu(x @ p["w1"].to(cd), approximate="tanh")
+    h = shard(F.gelu(x @ p["w1"].to(cd), approximate="tanh"), "batch", None, "ffn")
     return h @ p["w2"].to(cd)
 
 
@@ -137,14 +138,17 @@ def init_params(cfg: ModelConfig, *, device: torch.device, seed: int = 0) -> dic
 
 
 def encode(cfg: ModelConfig, params, enc_embeds):
-    """enc_embeds: (B, frames, d) -> the encoder's output (B, frames, d)."""
+    """enc_embeds: (B, frames, d) -> the encoder's output (B, frames, d).  On
+    DTensors every residual is held to its spec after each block, as
+    ``transformer.layer_decode``'s (JAX's whisper leaves the attention
+    residuals to GSPMD)."""
     x = enc_embeds.to(cfg.cdtype)
-    x = x + _pos(cfg, x.shape[1], x.device)
+    x = shard(x + _pos(cfg, x.shape[1], x.device), "batch", None, "embed")
     for p in params["enc"]:
         h = layers.rmsnorm(x, p["ln1"], cfg.norm_eps)
-        x = x + _attn(cfg, p["attn"], h, h, causal=False)
+        x = shard(x + _attn(cfg, p["attn"], h, h, causal=False), "batch", None, "embed")
         h = layers.rmsnorm(x, p["ln2"], cfg.norm_eps)
-        x = x + _mlp(p["mlp"], h, cfg.cdtype)
+        x = shard(x + _mlp(p["mlp"], h, cfg.cdtype), "batch", None, "embed")
     return layers.rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -155,11 +159,11 @@ def _embed(cfg: ModelConfig, params, tokens):
 
 def _dec_layer(cfg: ModelConfig, p, x, enc_out):
     h = layers.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    x = x + _attn(cfg, p["self"], h, h, causal=True)
+    x = shard(x + _attn(cfg, p["self"], h, h, causal=True), "batch", None, "embed")
     h = layers.rmsnorm(x, p["lnx"], cfg.norm_eps)
-    x = x + _attn(cfg, p["cross"], h, enc_out, causal=False)
+    x = shard(x + _attn(cfg, p["cross"], h, enc_out, causal=False), "batch", None, "embed")
     h = layers.rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + _mlp(p["mlp"], h, cfg.cdtype)
+    return shard(x + _mlp(p["mlp"], h, cfg.cdtype), "batch", None, "embed")
 
 
 def _hidden(cfg: ModelConfig, params, batch):
@@ -227,42 +231,51 @@ def prefill(cfg: ModelConfig, params, cache, batch):
         h = layers.rmsnorm(x, p["ln1"], cfg.norm_eps)
         q, k, v = _proj_qkv(cfg, p["self"], h, h)
         a = layers.attention(q, k, v, causal=True, window=None, q_block=min(512, s))
-        x = x + attention._out_proj(cfg, p["self"], a)
+        x = shard(x + attention._out_proj(cfg, p["self"], a), "batch", None, "embed")
         h = layers.rmsnorm(x, p["lnx"], cfg.norm_eps)
-        x = x + _attn_kv(cfg, p["cross"], h, c["cross_k"], c["cross_v"])
+        x = shard(x + _attn_kv(cfg, p["cross"], h, c["cross_k"], c["cross_v"]),
+                  "batch", None, "embed")
         h = layers.rmsnorm(x, p["ln2"], cfg.norm_eps)
-        x = x + _mlp(p["mlp"], h, cfg.cdtype)
+        x = shard(x + _mlp(p["mlp"], h, cfg.cdtype), "batch", None, "embed")
         n = min(s, c["self_k"].shape[1])
         for name, new in (("self_k", k), ("self_v", v)):
             c[name].zero_()
-            c[name][:, :n] = new[:, :n]
+            sh.write_seq(c[name], new[:, :n], slice(0, n))
     return head.logits(cfg, params["head"], x), cache
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos):
     """tokens: (B, 1); pos: (B,) int32.  The self caches are updated in place;
     the cross caches are read only -> (logits, cache)."""
-    b = tokens.shape[0]
     t = cache[0]["self_k"].shape[1]
     x = head.embed(cfg, params["head"], tokens)
     pos = pos.long()
     x = x + _pos(cfg, t, x.device)[pos][:, None, :]
-    bidx = torch.arange(b, device=x.device)
+
     hidden = torch.arange(t, device=x.device)[None, :] > pos[:, None]      # (B, T)
-    hidden = hidden[:, None, None, None, :]
+
+    def self_attn(q, k, v, hidden):
+        scores = layers._gqa_scores(q, k, None).masked_fill(
+            hidden[:, None, None, None, :], NEG_INF)
+        return layers._gqa_out(layers.softmax(scores), v).to(cfg.cdtype)
+
+    def cross_attn(q, k, v):
+        scores = layers._gqa_scores(q, k, None)
+        return layers._gqa_out(layers.softmax(scores), v).to(cfg.cdtype)
+
     for p, c in zip(params["dec"], cache):
         h = layers.rmsnorm(x, p["ln1"], cfg.norm_eps)
         q, k_new, v_new = _proj_qkv(cfg, p["self"], h, h)
-        c["self_k"].index_put_((bidx, pos), k_new[:, 0])
-        c["self_v"].index_put_((bidx, pos), v_new[:, 0])
-        scores = layers._gqa_scores(q, c["self_k"], None).masked_fill(hidden, NEG_INF)
-        a = layers._gqa_out(torch.softmax(scores, dim=-1), c["self_v"]).to(cfg.cdtype)
-        x = x + attention._out_proj(cfg, p["self"], a)
+        sh.write_rows(c["self_k"], pos, k_new[:, 0])
+        sh.write_rows(c["self_v"], pos, v_new[:, 0])
+        a = layers.by_heads(self_attn, q, c["self_k"], c["self_v"], hidden,
+                            rest_specs=[("batch", None)])
+        x = shard(x + attention._out_proj(cfg, p["self"], a), "batch", None, "embed")
         h = layers.rmsnorm(x, p["lnx"], cfg.norm_eps)
         q = attention._proj(h, p["cross"]["wq"], cfg.cdtype)
-        scores = layers._gqa_scores(q, c["cross_k"], None)
-        a = layers._gqa_out(torch.softmax(scores, dim=-1), c["cross_v"]).to(cfg.cdtype)
-        x = x + attention._out_proj(cfg, p["cross"], a)
+        a = layers.by_heads(cross_attn, q, c["cross_k"], c["cross_v"])
+        x = shard(x + attention._out_proj(cfg, p["cross"], a), "batch", None, "embed")
         h = layers.rmsnorm(x, p["ln2"], cfg.norm_eps)
-        x = x + _mlp(p["mlp"], h, cfg.cdtype)
+        # the residual held to its spec, as transformer.layer_decode
+        x = shard(x + _mlp(p["mlp"], h, cfg.cdtype), "batch", None, "embed")
     return head.logits(cfg, params["head"], x), cache

@@ -20,7 +20,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.distributed.sharding import mesh_axis_size, tree_map_specs
+from repro_torch.distributed.sharding import is_dtensor, mesh_axis_size, tree_map_specs
 from repro_torch.training import tree
 
 #: elements updated a pass (64 MB of float32 per temporary)
@@ -83,7 +83,11 @@ def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 def _pieces(t: torch.Tensor):
     # a view of a contiguous leaf (view raises on any other, where a reshape
-    # would copy and lose the in-place update)
+    # would copy and lose the in-place update).  A DTensor leaf is one piece:
+    # a rank updates its own shard, and flattening a sharded leaf into
+    # pieces would cut its shards apart.
+    if is_dtensor(t):
+        return (t,)
     return t.view(-1).split(UPDATE_CHUNK)
 
 

@@ -69,6 +69,36 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert proc.stdout.strip() == "[]"
 
 
+def test_the_mesh_path_loads_no_jax_and_no_repro():
+    """A smoke model's forward on DTensor parameters over a fake group of 8
+    ranks (``sharding.fake_group``, ``dtensor_mesh``, ``distribute_tree``)
+    and the dry run's count of one rank import neither jax nor ``repro``."""
+    code = ("import sys, torch\n"
+            "from repro_torch.configs import get_smoke_config\n"
+            "from repro_torch.distributed import sharding as sh\n"
+            "from repro_torch.launch import dryrun\n"
+            "from repro_torch.models import registry\n"
+            "cfg = get_smoke_config('gemma3-4b')\n"
+            "mesh = sh.Mesh(('data', 'model'), (4, 2))\n"
+            "with sh.fake_group(8):\n"
+            "    dm = sh.dtensor_mesh(mesh, 'cpu')\n"
+            "    with sh.use_mesh(mesh):\n"
+            "        specs = registry.param_specs(cfg)\n"
+            "    p = sh.distribute_tree(registry.init_params(cfg, device='meta'), specs, dm)\n"
+            "    t = torch.empty((8, 16), dtype=torch.int32, device='meta')\n"
+            "    t = sh.distribute_leaf(t, ('batch', None), dm)\n"
+            "    with sh.use_mesh(mesh):\n"
+            "        registry.forward(cfg, p, {'tokens': t})\n"
+            "dryrun.count_rank(cfg, 'decode_32k', mesh)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "print(bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
 def _imported_roots(path: Path) -> set[str]:
     roots = set()
     for node in ast.walk(ast.parse(path.read_text(), str(path))):

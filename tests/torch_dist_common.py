@@ -19,7 +19,17 @@ JSON).  A job is a dict:
 * ``{"kind": "dryrun_cell", "arch", "smoke", "overrides", "shape", "mesh":
   [sizes, names]}`` -> ``jax_cell_figures``' dict: the JAX package's dry-run
   cell (``repro.launch.cells.build_cell``) compiled on that mesh of the
-  forced host devices.
+  forced host devices; with ``"shapes": {name: [seq_len, global_batch,
+  kind]}`` those shapes join the JAX package's shape grid for the job, and
+  with ``"collectives": true`` the dict also holds ``hlo_analysis``'
+  ``collectives`` table and ``collective_bytes`` a device;
+* ``{"kind": "model_mesh", "archs", "mesh": [sizes, names], "batch", "seq",
+  "decode_steps", "seed", "out"}`` -> ``{"path": out}``: every arch's smoke
+  config in float32 on that mesh, its parameters (the seeded init) and
+  inputs (``torch_mesh_common.batch_arrays``) placed by their specs, its
+  ``forward``, ``prefill`` and greedy ``decode_step``s jitted under
+  ``use_mesh``; the outputs (and the greedy tokens) written to ``out``
+  (``.npz``, keys ``arch/call``).
 
 ``T`` names a trace: ``{"kind": "events" | "rates", "config": {...},
 "tick_s": s}``, plus ``"cluster_below": rps`` to cluster a rate trace.
@@ -132,8 +142,11 @@ def jax_cell_figures(job: dict) -> dict:
     from jax.sharding import AxisType
 
     from repro.configs import get_config, get_smoke_config
-    from repro.configs.base import SHAPES
+    from repro.configs.base import SHAPES, ShapeConfig
     from repro.launch import cells as jcells
+    from repro.launch.hlo_analysis import analyze_hlo_text
+    for name, (seq, rows, kind) in job.get("shapes", {}).items():
+        SHAPES[name] = ShapeConfig(name, seq, rows, kind)
     cfg = (get_smoke_config if job["smoke"] else get_config)(job["arch"])
     cfg = cfg.replace(**job.get("overrides", {}))
     sizes, names = job["mesh"]
@@ -144,7 +157,12 @@ def jax_cell_figures(job: dict) -> dict:
     kept = set(comp._executable._kept_var_idx)
     leaves = jax.tree_util.tree_flatten_with_path(args)[0]
     pruned = [(jax.tree_util.keystr(p), sd) for i, (p, sd) in enumerate(leaves) if i not in kept]
-    return {"argument_bytes": comp.memory_analysis().argument_size_in_bytes,
+    extra = {}
+    if job.get("collectives"):
+        hlo = analyze_hlo_text(comp.as_text())
+        extra = {"collectives": hlo["collectives"],
+                 "collective_bytes": hlo["collective_bytes_per_device"]}
+    return {**extra, "argument_bytes": comp.memory_analysis().argument_size_in_bytes,
             "pruned": [p for p, _ in pruned],
             "pruned_bytes": sum(math.prod(sd.sharding.shard_shape(sd.shape)) * sd.dtype.itemsize
                                 for _, sd in pruned),
@@ -154,12 +172,73 @@ def jax_cell_figures(job: dict) -> dict:
             "donate": list(donate)}
 
 
+def jax_model_mesh(job: dict) -> dict:
+    """The JAX package's sharded smoke runs of ``job["archs"]`` (module
+    docstring) -> ``{"path": job["out"]}``."""
+    import functools
+
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import AxisType, NamedSharding
+
+    from repro.configs import get_smoke_config
+    from repro.distributed import sharding as jsh
+    from repro.models import registry as jreg
+    from torch_mesh_common import F32, batch_arrays
+    sizes, names = job["mesh"]
+    mesh = jax.make_mesh(tuple(sizes), tuple(names), axis_types=(AxisType.Auto,) * len(sizes))
+
+    def is_spec(leaf):
+        return leaf is None or isinstance(leaf, tuple)
+
+    def put(tree, specs):
+        def one(x, sp):
+            spec = jsh.sanitize_spec(jsh.logical_to_spec(sp or (), mesh), x.shape, mesh)
+            return jax.device_put(x, NamedSharding(mesh, spec))
+        return jax.tree.map(one, tree, specs, is_leaf=lambda leaf: is_spec(leaf)
+                            and not isinstance(leaf, jax.Array))
+
+    out = {}
+    b, steps = job["batch"], job["decode_steps"]
+    for arch in job["archs"]:
+        cfg = get_smoke_config(arch).replace(**F32)
+        params = jax.jit(functools.partial(jreg.init_params, cfg))(
+            jax.random.PRNGKey(job["seed"]))
+        arrays = batch_arrays(cfg, b, job["seq"], job["seed"])
+        s = job["seq"] + (cfg.num_patches if cfg.family == "vlm" else 0)
+        with jsh.use_mesh(mesh):
+            pspecs, cspecs = jreg.param_specs(cfg), jreg.cache_specs(cfg)
+            bspecs = {"tokens": ("batch", None), "patch_embeds": ("batch", None, "embed"),
+                      "enc_embeds": ("batch", None, "embed")}
+            batch = {k: jax.device_put(jnp.asarray(v), NamedSharding(mesh, jsh.sanitize_spec(
+                jsh.logical_to_spec(bspecs[k], mesh), v.shape, mesh)))
+                for k, v in arrays.items() if k in bspecs}
+            params = put(params, pspecs)
+            cache = put(jreg.init_cache(cfg, b, s + steps), cspecs)
+            fwd = jax.jit(lambda p, bt: jreg.forward(cfg, p, bt)[0])(params, batch)
+            pre, cache = jax.jit(functools.partial(jreg.prefill, cfg))(params, cache, batch)
+            step = jax.jit(functools.partial(jreg.decode_step, cfg))
+            out[f"{arch}/forward"], out[f"{arch}/prefill"] = fwd, pre
+            tok = jnp.argmax(fwd[:, -1:], axis=-1).astype(jnp.int32)
+            feed = []
+            for i in range(steps):
+                feed.append(tok)
+                lg, cache = step(params, cache, tok, jnp.full((b,), s + i, jnp.int32))
+                out[f"{arch}/decode{i}"] = lg
+                tok = jnp.argmax(lg[:, -1:], axis=-1).astype(jnp.int32)
+            out[f"{arch}/feed"] = jnp.concatenate(feed, axis=1)
+    np.savez(job["out"], **{k: np.asarray(v) for k, v in out.items()})
+    return {"path": job["out"]}
+
+
 def _run_job(job: dict):
     """One job, under the forced host devices (the subprocess side)."""
     from repro.core.runspec import RunSpec
     kind = job["kind"]
     if kind == "dryrun_cell":
         return jax_cell_figures(job)
+    if kind == "model_mesh":
+        return jax_model_mesh(job)
     if kind == "cli":
         import importlib
         main = importlib.import_module(job["module"]).main
@@ -193,15 +272,36 @@ def _run_job(job: dict):
 def jax_jobs(jobs: list[dict], timeout: float = 600.0) -> list:
     """Every job's result from the JAX package, in one subprocess that sees
     ``FORCED_DEVICES`` host devices."""
+    return start_jax_jobs(jobs)(timeout)
+
+
+def start_jax_jobs(jobs: list[dict]):
+    """:func:`jax_jobs` started in the background -> a function of a timeout
+    that waits for the subprocess and returns its results."""
+    import tempfile
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"),
                XLA_FLAGS=f"--xla_force_host_platform_device_count={FORCED_DEVICES}")
-    proc = subprocess.run([sys.executable, str(Path(__file__).resolve())],
-                          input=json.dumps(jobs), capture_output=True, text=True,
-                          env=env, cwd=str(ROOT), timeout=timeout)
-    if proc.returncode != 0:
-        raise RuntimeError(f"the JAX subprocess failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+    files = [tempfile.TemporaryFile("w+") for _ in range(3)]
+    files[0].write(json.dumps(jobs))
+    files[0].seek(0)
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve())],
+                            stdin=files[0], stdout=files[1], stderr=files[2], text=True,
+                            env=env, cwd=str(ROOT))
+
+    def wait(timeout: float = 600.0) -> list:
+        try:
+            proc.wait(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            out, err = (f.seek(0) or f.read() for f in files[1:])
+            for f in files:
+                f.close()
+        if proc.returncode != 0:
+            raise RuntimeError(f"the JAX subprocess failed ({proc.returncode}):\n"
+                               f"{err[-4000:]}")
+        return json.loads(out.strip().splitlines()[-1])
+    return wait
 
 
 def _main() -> int:
