@@ -2743,10 +2743,10 @@ TOOL_PHASES_TIMEOUT = 900
 
 
 def tool_phases_start(script: str, *args: str) -> tuple:
-    """Start a tools/ script that runs some of this script's phases (scenario.* or
-    opt.*) in a process of its own -> (script, start, its output file, process), for
-    tool_phases_collect: host-bound phases go on beside the fluid and dist phases
-    (one card, several processes)."""
+    """Start a tools/ script that runs some of this script's phases (scenario.*,
+    opt.* or mesh.uneven) in a process of its own -> (script, start, its output
+    file, process), for tool_phases_collect: host-bound phases go on beside the
+    fluid and dist phases (one card, several processes)."""
     import tempfile
     out = tempfile.TemporaryFile("w+")
     path = os.environ.get("PYTHONPATH")
@@ -2768,7 +2768,8 @@ def tool_phases_collect(started: tuple) -> None:
     text = out.read()
     out.close()
     for line in text.splitlines():
-        if line.startswith("[") and not line.startswith("[env]"):
+        # phase lines; not the env line, nor torch.distributed's per-rank warnings
+        if line.startswith("[") and not line.startswith(("[env]", "[rank")):
             print(line, flush=True)
     if proc.returncode != 0:
         raise AssertionError(f"tools/{script}: exit {proc.returncode}; {text[-4000:]}")
@@ -3671,6 +3672,114 @@ def mesh_rank_phase(ms, get_config, card: str) -> None:
           step_s_card=f"{step_s:.3f}", card=card)
 
 
+# mesh.uneven: every family's smoke config in float32 on the meshes of the CPU tests, as
+# threaded ranks on cuda:0, each run held to the unsharded run on the card (forward,
+# prefill and MESH_UNEVEN_RUN["steps"] greedy decode steps): (1, 3), whose "model" axis
+# divides no smoke width; (2, 2, 2), the batch over ("pod", "data"); and (4, 2), the mesh
+# of tests/test_torch_mesh_models.py.  The card's torch is not the CPU tests': a view or a
+# strategy one release takes and the other refuses fails the run here.
+MESH_FAMILIES = ("gemma3-4b", "internvl2-76b", "deepseek-moe-16b", "deepseek-v2-lite-16b",
+                 "rwkv6-3b", "hymba-1.5b", "whisper-tiny")
+MESH_UNEVEN = ((((1, 3), ("data", "model")), MESH_FAMILIES),
+               (((2, 2, 2), ("pod", "data", "model")), ("gemma3-4b",)),
+               (((4, 2), ("data", "model")), MESH_FAMILIES))
+MESH_UNEVEN_RUN = dict(batch=4, seq=22, steps=2, seed=1)
+# of the largest output, as tests/test_torch_mesh_uneven.py holds them
+MESH_UNEVEN_TOL = 1e-5
+
+
+def mesh_uneven_case(ms, registry, cfg, sizes, names) -> dict:
+    """One family on one mesh: the unsharded run on the card, whose greedy
+    tokens feed both runs' decode steps, then the same calls on every rank of
+    the mesh -> {"err": the worst max |diff| / max |output| over ranks and
+    calls, "plain_s", "mesh_s"}."""
+    r = MESH_UNEVEN_RUN
+    b, steps = r["batch"], r["steps"]
+    rng = np.random.default_rng(r["seed"])
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, r["seq"])).astype(np.int32)}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = rng.standard_normal(
+            (b, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
+    s = r["seq"] + (cfg.num_patches if cfg.family == "vlm" else 0)
+    params = registry.init_params(cfg, device=DEVICE, seed=r["seed"])
+
+    def calls(p, cache, bt, feed):
+        out = [registry.forward(cfg, p, bt)[0]]
+        lg, cache = registry.prefill(cfg, p, cache, bt)
+        out.append(lg)
+        for i in range(steps):
+            pos = torch.full((b,), s + i, dtype=torch.int32, device=DEVICE)
+            lg, cache = registry.decode_step(cfg, p, cache, feed[:, i:i + 1], pos)
+            out.append(lg)
+        return out
+
+    t0 = time.monotonic()
+    with torch.no_grad():
+        feed = [registry.forward(cfg, params, batch)[0][:, -1:].argmax(-1).to(torch.int32)]
+        cache = registry.init_cache(cfg, b, s + steps, device=DEVICE)
+        registry.prefill(cfg, params, cache, batch)
+        for i in range(steps - 1):
+            pos = torch.full((b,), s + i, dtype=torch.int32, device=DEVICE)
+            lg, cache = registry.decode_step(cfg, params, cache, feed[-1], pos)
+            feed.append(lg[:, -1:].argmax(-1).to(torch.int32))
+        feed = torch.cat(feed, dim=1)
+        ref = calls(params, registry.init_cache(cfg, b, s + steps, device=DEVICE), batch, feed)
+    torch.cuda.synchronize()
+    plain_s = time.monotonic() - t0
+    mesh = ms.sh.Mesh(names, sizes)
+    with ms.sh.use_mesh(mesh):
+        pspecs, cspecs = registry.param_specs(cfg), registry.cache_specs(cfg)
+        bspecs = registry.batch_specs(cfg)
+
+    def rank(_):
+        dm = ms.sh.dtensor_mesh(mesh, torch.device(DEVICE).type)
+        dp = ms.sh.distribute_tree(params, pspecs, dm)
+        dcache = ms.sh.distribute_tree(registry.init_cache(cfg, b, s + steps, device=DEVICE),
+                                       cspecs, dm)
+        dbatch = ms.sh.distribute_tree(batch, bspecs, dm)
+        dfeed = ms.sh.distribute_leaf(feed, ("batch", None), dm)
+        with torch.no_grad(), ms.sh.use_mesh(mesh):
+            return [o.full_tensor() for o in calls(dp, dcache, dbatch, dfeed)]
+
+    t0 = time.monotonic()
+    with ms.sh.use_mesh(mesh):               # implicit replication on for every rank
+        res = threaded_ranks(mesh.size, rank)
+    torch.cuda.synchronize()
+    mesh_s = time.monotonic() - t0
+    err = max(rel_max_err(o, w) for outs in res for o, w in zip(outs, ref))
+    if not all(torch.isfinite(o).all() for outs in res for o in outs):
+        err = float("inf")
+    del params, ref, res
+    return {"err": err, "plain_s": plain_s, "mesh_s": mesh_s}
+
+
+def mesh_uneven_phase(ms, registry, get_smoke_config, card: str) -> None:
+    """Every case of MESH_UNEVEN (mesh_uneven_case), each held within
+    MESH_UNEVEN_TOL; no error of a case is caught."""
+    f32 = dict(param_dtype="float32", compute_dtype="float32", remat="none")
+    cases = {}
+    for (sizes, names), archs in MESH_UNEVEN:
+        for arch in archs:
+            got = mesh_uneven_case(ms, registry, get_smoke_config(arch).replace(**f32),
+                                   sizes, names)
+            cases[f"{arch}@{'x'.join(map(str, sizes))}"] = got
+            if not got["err"] <= MESH_UNEVEN_TOL:
+                raise AssertionError(f"mesh.uneven: {arch} on {dict(zip(names, sizes))} "
+                                     f"differs from its unsharded run by {got['err']:.4g} "
+                                     f"of its largest output (bound {MESH_UNEVEN_TOL})")
+    free_cuda()
+    phase("mesh.uneven", group="threaded (one process, a rank a thread, all on cuda:0)",
+          dtype="float32", run=MESH_UNEVEN_RUN, bound=MESH_UNEVEN_TOL,
+          worst=f"{max(c['err'] for c in cases.values()):.4g}",
+          rel_err={k: f"{c['err']:.3g}" for k, c in cases.items()},
+          mesh_s={k: f"{c['mesh_s']:.2f}" for k, c in cases.items()},
+          torch=torch.__version__, card=card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one NVIDIA GPU", file=sys.stderr)
@@ -3830,11 +3939,13 @@ def main() -> int:
     timed("train.no_kernel_grad", no_kernel_grad_phase, kernels, plain, get_smoke_config,
           registry, tr)
 
-    # the scenario and cells layers (every registered scenario) and the optimizer (grid
-    # and evo search, the learned policy, the frontier CLI) go on in processes of their
-    # own beside the fluid and dist phases; no kernel of this repo
+    # the scenario and cells layers (every registered scenario), the optimizer (grid
+    # and evo search, the learned policy, the frontier CLI) and mesh.uneven (every
+    # family on the CPU tests' meshes, threaded ranks on cuda:0) go on in processes of
+    # their own beside the fluid and dist phases; no kernel of this repo
     tools = [tool_phases_start("scenario_phases.py"),
-             tool_phases_start("opt_phases.py", "--only", "smoke")]
+             tool_phases_start("opt_phases.py", "--only", "smoke"),
+             tool_phases_start("mesh_phases.py", "--only", "uneven")]
 
     def fluid_and_dist():
         # the fluid simulator at full size: no kernel of this repo on its path
@@ -3870,6 +3981,7 @@ def main() -> int:
     try:
         timed("scenario", tool_phases_collect, tools[0])
         timed("opt", tool_phases_collect, tools[1])
+        timed("mesh.uneven", tool_phases_collect, tools[2])
     except BaseException:
         stop_processes([dist_cli, *tools])
         raise

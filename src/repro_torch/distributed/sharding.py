@@ -394,8 +394,10 @@ def local_map(fn, in_specs: Sequence[Spec], outs: Sequence[tuple], *args):
         p if p.is_shard() or i not in split else _partial()
         for i, p in enumerate(a.placements)])) for a in held]
     res = fn(*locs)
+    # contiguous: the global stride given below is a contiguous tensor's
     return tuple(
-        DTensor.from_local(o, dm, _live_placements(physical_spec(sp, shape, mesh), mesh),
+        DTensor.from_local(o.contiguous(), dm,
+                           _live_placements(physical_spec(sp, shape, mesh), mesh),
                            run_check=False, shape=torch.Size(shape),
                            stride=contiguous_stride(shape))
         for o, (sp, shape) in zip(res, outs))
@@ -563,7 +565,8 @@ def _blend_put(loc, rows, pos, new, whole: bool) -> None:
 
 def shard(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
     """Apply a sharding expressed in logical axes: the identity without a
-    mesh or on a plain tensor, a ``redistribute`` on a DTensor."""
+    mesh or on a plain tensor, a ``redistribute`` on a DTensor (its gradient
+    held to the same placements: :class:`_Constrain`)."""
     mesh = current_mesh()
     if mesh is None:
         return x
@@ -571,7 +574,26 @@ def shard(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
     if not isinstance(x, DTensor):
         return x
     spec = sanitize_spec(logical_to_spec(logical, mesh), x.shape, mesh)
-    return x.redistribute(x.device_mesh, _live_placements(spec, mesh))
+    return _Constrain.apply(x, _live_placements(spec, mesh))
+
+
+class _Constrain(torch.autograd.Function):
+    """``redistribute`` to placements ``pl`` whose gradient returns in the
+    input's placements, as DTensor's own backward, but where the input was a
+    partial sum: there it is held to ``pl``, as the transpose of JAX's
+    ``with_sharding_constraint`` constrains the cotangent.  DTensor's
+    backward would let a partial sum that the forward reduced (a residual
+    after a row-parallel product) flow back unreduced, and every product of
+    the backward would gather its weight to meet it."""
+
+    @staticmethod
+    def forward(ctx, x, pl):
+        ctx.pl = tuple(c if p.is_partial() else p for p, c in zip(x.placements, pl))
+        return x.redistribute(x.device_mesh, pl)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.pl), None
 
 
 def mesh_axis_size(logical_axis: str, mesh: Optional[Mesh] = None) -> int:

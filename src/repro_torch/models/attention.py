@@ -107,7 +107,7 @@ def _out_proj(cfg: ModelConfig, p, out):
     out = shard(out, "batch", None, qh, None)
     wo = p["wo"].to(cfg.cdtype)
     wo = shard(wo.reshape(-1, wo.shape[-1]), qh, None)          # as in ``_proj``
-    return out.flatten(-2) @ wo                                  # "bshk,hkd->bsd"
+    return layers.dense(out.flatten(-2), wo)                    # "bshk,hkd->bsd"
 
 
 def apply(cfg: ModelConfig, p, x, *, window: Optional[int], positions=None,

@@ -61,10 +61,10 @@ def chunked_loss(cfg: ModelConfig, p, x: torch.Tensor, batch: dict,
     """Cross entropy without ever materialising the full-sequence logits.
 
     The LM head runs over sequence chunks of the largest divisor of S that is
-    <= ``chunk``; when autograd records, each chunk runs under ``checkpoint``,
-    so the backward recomputes one chunk's logits at a time (at gemma3-4b's
-    262,144-token vocabulary a 512-token chunk's float32 logits are 0.54 GB a
-    sequence).  Sums run in the JAX package's order: per chunk, then chunk
+    <= ``chunk``; when autograd records, each of several chunks runs under
+    ``checkpoint``, so the backward recomputes one chunk's logits at a time
+    (at gemma3-4b's 262,144-token vocabulary a 512-token chunk's float32
+    logits are 0.54 GB a sequence).  Sums run in the JAX package's order: per chunk, then chunk
     by chunk from zero."""
     s = x.shape[1]
     targets, mask = batch["targets"], batch.get("loss_mask")
@@ -82,7 +82,10 @@ def chunked_loss(cfg: ModelConfig, p, x: torch.Tensor, batch: dict,
         lg = shard(lg, "batch", None, "vocab")
         return (layers.nll(lg, tc) * mc).sum(), mc.sum()
 
-    remat = layers.grad_needed(x, w)
+    # one chunk is not checkpointed: its recomputation would free nothing
+    # that the backward does not make again at once (XLA merges the JAX
+    # package's single checkpointed call with its forward the same way)
+    remat = layers.grad_needed(x, w) and cb < s
     nll_sum = msum = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, s, cb):
         args = (x[:, i:i + cb], w, targets[:, i:i + cb], mask[:, i:i + cb])

@@ -89,7 +89,10 @@ def _conv1d(xin, w, b, conv_state=None):
 
 def _ssm_params(cfg: ModelConfig, p, xc):
     _, dt_rank, n, _ = _dims(cfg)
-    xdb = xc @ p["x_proj"].to(xc.dtype)
+    # held whole over "model" (the product contracts the sharded channels)
+    # before its split: the card's torch finds no strategy for the split
+    # partial sums' next product
+    xdb = shard(xc @ p["x_proj"].to(xc.dtype), "batch", None, None)
     dt_raw, b_, c_ = torch.split(xdb, [dt_rank, n, n], dim=-1)
     dt = F.softplus((dt_raw @ p["dt_proj"].to(xc.dtype)).float() + p["dt_bias"].float())
     a = -torch.exp(p["A_log"].float())                    # (di, N)

@@ -58,6 +58,14 @@ def embed_init(gen, vocab: int, dim: int, dtype, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (x: (..., in), w: (in, out)) as one 2-D product over x's
+    leading dims folded together.  DTensor gives a batch sharded next to a
+    size-1 dim (a decode step's S) a global stride that ``matmul`` will not
+    fold, and ``matmul`` would then copy the weight to every batch row."""
+    return (x.reshape(-1, x.shape[-1]) @ w).unflatten(0, x.shape[:-1])
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
     x = x.float()

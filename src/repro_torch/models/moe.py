@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import local_map, shard
+from repro_torch.distributed.sharding import div_axis, local_map, shard
 from repro_torch.kernels.moe_gemm import moe_expert_ffn
 from repro_torch.models import attention, head, layers, mla, stack
 
@@ -108,23 +108,33 @@ def _expert_ffn_local(cfg: ModelConfig, xe, wg, wu, wo):
 
 
 def _moe_dispatch(cfg: ModelConfig, p, xg, probs, ids):
-    """GShard one-hot dispatch. xg: (n,G,d)."""
-    g = xg.shape[1]
+    """GShard one-hot dispatch. xg: (n,G,d).
+
+    On a mesh the products are placed as GSPMD places the JAX package's:
+    the dispatch contracts each group's whole token dim on each rank's own
+    experts, and the combine takes the rank's share of the tokens
+    (:func:`_token_axes`) on its own experts, a partial sum over "model"."""
+    n, g, _ = xg.shape
     e, c = cfg.num_experts, _capacity(cfg, g)
+    tok = _token_axes(n)
     onehot = F.one_hot(ids, e).float()                                 # (n,G,K,E)
     assign = onehot.sum(2)                                             # (n,G,E)
-    pos = torch.cumsum(assign, 1) - assign                             # (n,G,E)
+    pos = shard(torch.cumsum(assign, 1) - assign, *tok, None)          # (n,G,E)
     keep = (pos < c).float() * assign
     # jax.nn.one_hot gives a zero row for pos >= c where F.one_hot raises:
     # clamp the index, and keep zeroes those rows
     disp = keep[..., None] * F.one_hot(pos.long().clamp(max=c - 1), c).float()
     gates = (onehot * probs[..., None]).sum(2)                         # (n,G,E)
-    combine = disp * gates[..., None]                                  # (n,G,E,C)
+    combine = shard((disp * gates[..., None]).to(cfg.cdtype), *tok, "experts", None)
     disp = shard(disp.to(cfg.cdtype), "expert_batch", None, "experts", None)
-    xe = torch.einsum("ngec,ngd->necd", disp, xg)                      # (n,E,C,d)
-    xe = shard(xe, "expert_batch", "experts", None, None)
+    xg = shard(xg, "expert_batch", None, "embed")
+    # "ngec,ngd->necd" and "ngec,necd->ngd" as batched products over (E*C):
+    # the card's torch lays an einsum's operands out (C, E), and then cannot
+    # flatten the sharded E into the contraction
+    xe = (disp.permute(0, 2, 3, 1).reshape(n, e * c, g) @ xg).unflatten(1, (e, c))
+    xe = shard(xe, "expert_batch", "experts", None, None)              # (n,E,C,d)
     ye = _expert_ffn(cfg, p, xe)
-    return torch.einsum("ngec,necd->ngd", combine.to(cfg.cdtype), ye)
+    return combine.reshape(n, g, e * c) @ ye.reshape(n, e * c, -1)
 
 
 def _moe_ragged(cfg: ModelConfig, p, xg, probs, ids):
@@ -135,7 +145,28 @@ def _moe_ragged(cfg: ModelConfig, p, xg, probs, ids):
     lands in its own slot.  (The JAX package clamps them onto slot C-1 and
     writes zeros there, which can erase the token kept in that slot; the two
     differ only when tokens are dropped, and this one equals ``dispatch``.)
-    """
+
+    On a mesh the sort and the scatter run on whole groups (a sort spans its
+    group's tokens) and each rank runs its own experts, as in
+    :func:`_moe_dispatch`; the outputs are gathered back whole over the
+    experts and the result split over the tokens as the routing was."""
+    n, g, d = xg.shape
+    e, k, c = cfg.num_experts, cfg.top_k, _capacity(cfg, g)
+    whole, rows = ("expert_batch", None, None), ("expert_batch", None)
+    xe, eid_s, tok_s, slot, w = local_map(
+        lambda *a: _ragged_scatter(cfg, *a), [whole] * 3,
+        [(("expert_batch", None, None, None), (n, e, c, d))] + [(rows, (n, g * k))] * 4,
+        xg, probs, ids)
+    ye = _expert_ffn(cfg, p, shard(xe, "expert_batch", "experts", None, None))
+    out = local_map(lambda *a: _ragged_gather(g, *a),
+                    [("expert_batch", None, None, None)] + [rows] * 4,
+                    [(whole, (n, g, d))], ye, eid_s, tok_s, slot, w)[0]
+    return shard(out, *_token_axes(n), None)
+
+
+def _ragged_scatter(cfg: ModelConfig, xg, probs, ids):
+    """-> (xe (n,E,C,d), and each (token, expert) pair sorted by expert: its
+    expert, token, slot and weight (0 where dropped))."""
     n, g, d = xg.shape
     e, k, c = cfg.num_experts, cfg.top_k, _capacity(cfg, g)
     dev = xg.device
@@ -156,12 +187,28 @@ def _moe_ragged(cfg: ModelConfig, p, xg, probs, ids):
     nidx = torch.arange(n, device=dev)[:, None].expand(n, g * k)
     xe = xg.new_zeros((n, e, c + 1, d))
     xe[nidx, eid_s, slot] = xg[nidx, tok_s]
-    ye = _expert_ffn(cfg, p, shard(xe[:, :, :c], "expert_batch", "experts", None, None))
-    back = ye[nidx, eid_s, slot.clamp(max=c - 1)]                      # (n,GK,d)
-    back = back * (pw_s * keep)[..., None].to(back.dtype)
-    out = torch.zeros_like(xg)
+    return xe[:, :, :c], eid_s, tok_s, slot.clamp(max=c - 1), pw_s * keep
+
+
+def _ragged_gather(g: int, ye, eid_s, tok_s, slot, w):
+    """Each of the G tokens' experts' outputs, weighted and summed: (n, G, d)
+    from ``_ragged_scatter``'s sorted pairs."""
+    n, gk = eid_s.shape
+    nidx = torch.arange(n, device=ye.device)[:, None].expand(n, gk)
+    back = ye[nidx, eid_s, slot] * w[..., None].to(ye.dtype)           # (n,GK,d)
+    out = ye.new_zeros((n, g, ye.shape[-1]))
     out.index_put_((nidx, tok_s), back, accumulate=True)
-    return out
+    return (out,)
+
+
+def _token_axes(n: int) -> tuple:
+    """The logical spec of a (groups, tokens) pair of dims: the groups over
+    "expert_batch" where they split evenly, else each group's tokens (one
+    group of a prefill or a decode step), as GSPMD splits the JAX package's
+    routing and combine where its constraint cannot split the groups."""
+    if div_axis("expert_batch", n) is not None:
+        return ("expert_batch", None)
+    return (None, "expert_batch")
 
 
 def moe_ffn(cfg: ModelConfig, p, x):
@@ -171,7 +218,7 @@ def moe_ffn(cfg: ModelConfig, p, x):
     g = min(MOE_GROUP, tokens)
     while tokens % g != 0:
         g -= 1
-    xg = shard(x.reshape(tokens // g, g, d), "expert_batch", None, "embed")
+    xg = shard(x.reshape(tokens // g, g, d), *_token_axes(tokens // g), "embed")
     probs, ids, aux = _route(cfg, p, xg)
     impl = _moe_ragged if cfg.moe_impl == "ragged" else _moe_dispatch
     out = impl(cfg, p, xg, probs, ids).reshape(b, s, d)

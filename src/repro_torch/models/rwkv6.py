@@ -90,7 +90,7 @@ def _ddlerp(p, x, xprev):
     xxx = x + sx * p["mu_x"].to(x.dtype)
     # replicated over "model" before the split into the five mixes (DTensor
     # may shard a product with a replicated weight by its columns)
-    t = shard(torch.tanh(xxx @ p["w1"].to(x.dtype)), "batch", None, None)
+    t = shard(torch.tanh(layers.dense(xxx, p["w1"].to(x.dtype))), "batch", None, None)
     t = t.reshape(*t.shape[:-1], 5, LORA_MIX)
     m = torch.einsum("bsfr,frd->bsfd", t, p["w2"].to(x.dtype))
     mixed = x[..., None, :] + sx[..., None, :] * (p["mu"].to(x.dtype) + m)
@@ -100,12 +100,12 @@ def _ddlerp(p, x, xprev):
 def _rkvwg(cfg: ModelConfig, p, x, xprev):
     xw, xk, xv, xr, xg = _ddlerp(p, x, xprev)
     cd = cfg.cdtype
-    r = xr @ p["wr"].to(cd)
-    k = xk @ p["wk"].to(cd)
-    v = xv @ p["wv"].to(cd)
-    g = F.silu(xg @ p["wg"].to(cd))
-    logw = -torch.exp(p["w0"].float()
-                      + torch.tanh(xw @ p["wa"].to(cd)).float() @ p["wb"].float())
+    r = layers.dense(xr, p["wr"].to(cd))
+    k = layers.dense(xk, p["wk"].to(cd))
+    v = layers.dense(xv, p["wv"].to(cd))
+    g = F.silu(layers.dense(xg, p["wg"].to(cd)))
+    logw = -torch.exp(p["w0"].float() + layers.dense(
+        torch.tanh(layers.dense(xw, p["wa"].to(cd))).float(), p["wb"].float()))
     logw = logw.clamp(LOGW_MIN, LOGW_MAX)
     return r, k, v, g, logw
 
@@ -152,21 +152,26 @@ def time_mix(cfg: ModelConfig, p, x, xprev, state):
                          p["u"].float(), state)
     y = _group_norm(y, p["gn_scale"], p["gn_bias"], cfg.norm_eps)
     y = y.to(cfg.cdtype) * g
-    return y @ p["wo"].to(cfg.cdtype), state
+    return layers.dense(y, p["wo"].to(cfg.cdtype)), state
 
 
 def channel_mix(cfg: ModelConfig, p, x, xprev):
     cd = cfg.cdtype
     xk = x + (xprev - x) * p["mu_k"].to(x.dtype)
     xr = x + (xprev - x) * p["mu_r"].to(x.dtype)
-    kk = shard(torch.square(F.relu(xk @ p["wk"].to(cd))), "batch", None, "ffn")
-    vv = kk @ p["wv"].to(cd)
-    rr = torch.sigmoid(xr @ p["wr"].to(cd))
+    kk = shard(torch.square(F.relu(layers.dense(xk, p["wk"].to(cd)))), "batch", None, "ffn")
+    vv = layers.dense(kk, p["wv"].to(cd))
+    rr = torch.sigmoid(layers.dense(xr, p["wr"].to(cd)))
     return rr * vv
 
 
 def _tshift(x):
-    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    """x (B, S, d) shifted one token later along S, a zero row first.  On a
+    DTensor the shift runs on the rank's own rows (``local_map``): the card's
+    torch turns ``F.pad``'s zeros into a DTensor of the wrong mesh rank."""
+    spec = ("batch", None, None)
+    return local_map(lambda t: (F.pad(t, (0, 0, 1, 0))[:, :-1],), [spec],
+                     [(spec, tuple(x.shape))], x)[0]
 
 
 def _ln(x, scale, eps):
@@ -219,7 +224,7 @@ def layer_decode(cfg: ModelConfig, p, cache, x, pos, *, window, kind):
     y = _group_norm(y[:, None], p["tm"]["gn_scale"], p["tm"]["gn_bias"], cfg.norm_eps)
     y = y.to(cfg.cdtype) * g
     # the residual held to its spec, as transformer.layer_decode
-    x = shard(x + y @ p["tm"]["wo"].to(cfg.cdtype), "batch", None, "embed")
+    x = shard(x + layers.dense(y, p["tm"]["wo"].to(cfg.cdtype)), "batch", None, "embed")
     xb = _ln(x, p["ln2"], cfg.norm_eps)
     cprev = cache["cshift"][:, None, :]
     x = shard(x + channel_mix(cfg, p["cm"], xb, cprev), "batch", None, "embed")

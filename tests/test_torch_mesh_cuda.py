@@ -9,6 +9,10 @@
   shapes under a fake group, beside the same rank counted on the meta
   device: matmul FLOPs equal, collectives equal, the peak within
   ``chip_smoke.DRYRUN_PEAK_RTOL``.
+* ``mesh.uneven``'s cases one by one: every family on (1, 3) and (4, 2),
+  gemma3-4b on (2, 2, 2), threaded ranks on cuda:0, each held to its
+  unsharded run within ``chip_smoke.MESH_UNEVEN_TOL`` (the card's torch
+  refuses some of what the CPU tests' release takes).
 """
 
 import sys
@@ -110,3 +114,15 @@ def registry_tree(tree, fn):
     if isinstance(tree, dict):
         return {k: registry_tree(v, fn) for k, v in tree.items()}
     return type(tree)(registry_tree(v, fn) for v in tree)
+
+
+UNEVEN = [(arch, sizes, names) for (sizes, names), archs in chip_smoke.MESH_UNEVEN
+          for arch in archs]
+
+
+@pytest.mark.parametrize("arch,sizes,names", UNEVEN,
+                         ids=[f"{a}-{'x'.join(map(str, s))}" for a, s, _ in UNEVEN])
+def test_a_family_on_a_mesh_holds_its_unsharded_run(arch, sizes, names):
+    got = chip_smoke.mesh_uneven_case(chip_smoke.mesh_modules(), registry,
+                                      get_smoke_config(arch).replace(**F32), sizes, names)
+    assert got["err"] <= chip_smoke.MESH_UNEVEN_TOL, got

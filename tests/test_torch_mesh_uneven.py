@@ -7,7 +7,9 @@ the unsharded port in float32:
   ``sanitize_spec`` drops it from every such spec (and a 24-deep full cache
   is split over it by ``kv_seq``);
 * a (2, 2, 2) ("pod", "data", "model") mesh for gemma3-4b: the batch axis
-  over two mesh axes.
+  over two mesh axes;
+* the moe families' sort-based dispatch (``moe_impl="ragged"``) on the
+  (4, 2) mesh of ``tests/test_torch_mesh_models.py``.
 """
 
 import numpy as np
@@ -21,6 +23,7 @@ ARCHS = ("gemma3-4b", "internvl2-76b", "deepseek-moe-16b", "deepseek-v2-lite-16b
 RUN = dict(batch=4, seq=22, decode_steps=2, seed=1)
 CALLS = ("forward", "prefill", "decode0", "decode1")
 TOL = 1e-5     # of the largest magnitude, as tests/test_torch_mesh_models.py
+MOE = ("deepseek-moe-16b", "deepseek-v2-lite-16b")
 
 
 def _close(got, want, msg=""):
@@ -38,6 +41,12 @@ def uneven():
 def pod():
     return run_mesh(dict(archs=["gemma3-4b"], mesh=[[2, 2, 2], ["pod", "data", "model"]],
                          **RUN), timeout=600)
+
+
+@pytest.fixture(scope="module")
+def ragged():
+    return run_mesh(dict(archs=list(MOE), mesh=[[4, 2], ["data", "model"]],
+                         overrides={"moe_impl": "ragged"}, **RUN), timeout=600)
 
 
 def test_the_model_axis_divides_no_smoke_width():
@@ -59,5 +68,12 @@ def test_a_non_dividing_mesh_equals_the_unsharded_port(uneven, arch):
 
 def test_a_pod_mesh_equals_the_unsharded_port(pod):
     r = pod["gemma3-4b"]
+    for call in CALLS:
+        _close(r["mesh"][call], r["ref"][call], msg=call)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_sort_based_dispatch_on_a_mesh_equals_the_unsharded_port(ragged, arch):
+    r = ragged[arch]
     for call in CALLS:
         _close(r["mesh"][call], r["ref"][call], msg=call)
